@@ -1,0 +1,331 @@
+#!/usr/bin/env python
+"""Smoke test of the PyTorch / CUDA port (``optical_flow_tpu_torch``) on one NVIDIA GPU.
+
+    python3 chip_smoke.py
+
+Phases, each printing its results; any failed check exits non-zero:
+
+1. the card (name and power limit from nvidia-smi), torch and CUDA versions,
+   the float32 matmul settings, and the build of the three CUDA kernels
+   from ``optical_flow_tpu_torch/csrc``;
+2. each kernel against its plain PyTorch twin on the card at main-path
+   shapes, with both times (CUDA events);
+3. the main path, ``estimate_flow(rgb1, rgb2, "classic+nl-fast",
+   {"display": False, "solver": "pcg"}, device="cuda")`` on RubberWhale
+   584x388: finite output, AAE / AEPE against the ground truth within the
+   classic+nl-fast gate, the kernels' launch counts for one frame, and the
+   per-frame latency.
+
+The last line is one JSON object ``{"ok": true, "device": {...}}``; the
+line before it is nvidia-smi's name and power limit; before that, one
+JSON object lists each kernel.  Without a CUDA device, or without the
+rest of the repository beside it, the script exits non-zero and prints no
+result.  It imports neither JAX nor the JAX package.
+"""
+import json
+import os
+import statistics
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+REPO = os.path.dirname(os.path.abspath(__file__))
+
+# the classic+nl-fast gate of the JAX package on RubberWhale (float32 main path)
+TARGET_AAE, TARGET_AEPE = 2.500, 0.0813
+GATE_AAE, GATE_AEPE = 0.2, 0.01
+PARAMS = {"display": False, "solver": "pcg"}
+SEED = 0
+
+
+class CheckFailed(Exception):
+    pass
+
+
+def check(cond, msg):
+    if not cond:
+        raise CheckFailed(msg)
+
+
+def card_line():
+    out = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit", "--format=csv,noheader"],
+        capture_output=True, text=True, timeout=60,
+    )
+    check(out.returncode == 0 and out.stdout.strip(), f"nvidia-smi failed: {out.stderr.strip()}")
+    return out.stdout.strip().splitlines()[0]
+
+
+def cuda_ms(torch, fn, reps):
+    """Mean milliseconds of ``fn`` over ``reps`` runs after one warm-up, by CUDA events."""
+    fn()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        fn()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / reps
+
+
+def phase_setup(torch):
+    from optical_flow_tpu_torch.ops.cuda import build
+
+    card = card_line()
+    print(f"card: {card}")
+    print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device 0: {torch.cuda.get_device_name(0)}")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    t0 = time.time()
+    build.load_library()
+    print(f"kernel build + load: {time.time() - t0:.1f} s (key {build.build_key()})")
+    for line in build.build_log.splitlines():
+        if "registers" in line or "spill" in line or "Compiling entry" in line:
+            print(f"  ptxas: {line.strip()}")
+    return card
+
+
+def _pad(torch, x, hsz, dev):
+    from optical_flow_tpu_torch.ops.filters import pad2d
+
+    return pad2d(torch.as_tensor(x, device=dev), hsz, hsz, hsz, hsz, "mirror").contiguous()
+
+
+def check_wmedian(torch, dev, card, rng):
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
+
+    cases = [((19, 23), 3, 3, False), ((40, 300), 7, 3, False), ((16, 260), 2, 1, False), ((12, 140), 4, 3, True)]
+    for (H, W), hsz, C, ties in cases:
+        uv = (3 * rng.standard_normal((H, W, 2))).astype(np.float32)
+        if ties:
+            uv = (np.round(rng.standard_normal((H, W, 2)) * 4) / 4).astype(np.float32)
+        color = rng.uniform(0, 255, (C, H, W)).astype(np.float32)
+        occ = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+        args = (_pad(torch, uv[..., 0], hsz, dev), _pad(torch, uv[..., 1], hsz, dev), _pad(torch, occ, hsz, dev),
+                _pad(torch, color, hsz, dev), (H, W), hsz, 7.0)
+        out = wmedian(*args)
+        ref = wmedian_plain(*args)
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum())
+        print(f"wmedian {H}x{W} hsz {hsz} C {C}{' ties' if ties else ''}: {n_diff} differing values (bit-exact required)")
+        check(n_diff == 0, "weighted median is not bit-exact with its twin on the test shapes")
+
+    # the main path's finest level: 388x584, hsz 7, C 3
+    H, W, hsz = 388, 584, 7
+    uv = (3 * rng.standard_normal((H, W, 2))).astype(np.float32)
+    color = rng.uniform(0, 255, (3, H, W)).astype(np.float32)
+    occ = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+    u_pad = _pad(torch, uv[..., 0], hsz, dev)
+    args = (u_pad, _pad(torch, uv[..., 1], hsz, dev), _pad(torch, occ, hsz, dev), _pad(torch, color, hsz, dev), (H, W), hsz, 7.0)
+    out = wmedian(*args)
+    ref = wmedian_plain(*args)
+    torch.cuda.synchronize()
+    diff = out != ref
+    n_diff = int(diff.sum())
+    frac = 1.0 - n_diff / out.numel()
+    # every differing value must be its window's sample adjacent (in sorted
+    # order) to the twin's choice: the two sums' orders can only move the
+    # total/2 crossing across one sample
+    adjacent = True
+    k = 2 * hsz + 1
+    v_pad = args[1]
+    for y, x, c in diff.nonzero().tolist():
+        win = (u_pad if c == 0 else v_pad)[y : y + k, x : x + k].reshape(-1)
+        a, b = out[y, x, c], ref[y, x, c]
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        present = bool((win == a).any()) and bool((win == b).any())
+        between = int(((win > lo) & (win < hi)).sum())
+        adjacent = adjacent and present and between == 0
+    print(f"wmedian {H}x{W} hsz {hsz} C 3: {n_diff} of {out.numel()} values differ "
+          f"({100 * frac:.4f}% identical), all adjacent samples: {adjacent}")
+    check(frac >= 0.9999 and adjacent, "weighted median outside the adjacent-sample criterion at 388x584")
+    ms = cuda_ms(torch, lambda: wmedian(*args), 10)
+    plain_ms = cuda_ms(torch, lambda: wmedian_plain(*args), 3)
+    print(f"wmedian 388x584 hsz 7: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+    return {"max_abs_err": float((out - ref).abs().max()), "ms": ms, "plain_ms": plain_ms}
+
+
+def _irls_system(torch, dev, rgb1, rgb2, tu, tv):
+    """The stage-2 (alpha 0) IRLS system of RubberWhale's finest level, at the GT flow."""
+    from optical_flow_tpu_torch.config import load_of_method
+    from optical_flow_tpu_torch.methods.ba import _preprocess_traced
+    from optical_flow_tpu_torch.ops.derivatives import precompute_warp, warp_deriv
+    from optical_flow_tpu_torch.ops.stencil import blend_systems, build_irls_system
+    from optical_flow_tpu_torch.utils.compat import preprocess_color_pair
+
+    ope = load_of_method("classic+nl-fast")
+    ope.parse_input_parameter(PARAMS)
+    cfg = ope._nl_cfg(True).irls
+    f32 = torch.float32
+    gray, _ = preprocess_color_pair(torch.as_tensor(rgb1, dtype=f32, device=dev), torch.as_tensor(rgb2, dtype=f32, device=dev))
+    proc = _preprocess_traced("texture", gray, 0.95)
+    gt = np.stack([tu, tv], -1)
+    gt = np.where(np.abs(gt) < 1e9, gt, 0.0)
+    uv = torch.as_tensor(gt, dtype=f32, device=dev)
+    It, Ix, Iy = warp_deriv(precompute_warp(proc, cfg.interp, np.array(cfg.deriv_filter), cfg.blend), uv)
+    duv = torch.zeros_like(uv)
+    sys_q = build_irls_system(uv, duv, It, Ix, Iy, cfg.qua_rho_spatial_u, cfg.qua_rho_spatial_v, cfg.qua_rho_data, cfg.lambda_q)
+    sys_r = build_irls_system(uv, duv, It, Ix, Iy, cfg.rho_spatial_u, cfg.rho_spatial_v, cfg.rho_data, cfg.lambda_)
+    return blend_systems(0.0, sys_q, sys_r)
+
+
+def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply, system_apply_split, weighted_laplacian_diag
+
+    H, W = 388, 584
+
+    def u(*s):
+        return rng.uniform(0.1, 1.0, s).astype(np.float32)
+
+    w = [u(H, W) for _ in range(4)]
+    w[0][:, -1] = 0
+    w[2][:, -1] = 0
+    w[1][-1, :] = 0
+    w[3][-1, :] = 0
+    fields = [u(H, W) + 1.0, 0.5 * u(H, W), u(H, W) + 1.0, *w, u(H, W), u(H, W)]
+    random_sys = FlowSystem(*[torch.as_tensor(f, device=dev) for f in fields])
+    irls_sys = FlowSystem(*[f.contiguous() for f in _irls_system(torch, dev, rgb1, rgb2, tu, tv)])
+    result = None
+    for name, sysm, rtol, maxiter in (("random", random_sys, 1e-6, 1000), ("irls", irls_sys, 1e-3, 200)):
+        x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
+        it_k = cg_kernel.iteration_counts(x_k.device)[0]
+        du = sysm.a11 + weighted_laplacian_diag(sysm.wu_h, sysm.wu_v)
+        dv = sysm.a22 + weighted_laplacian_diag(sysm.wv_h, sysm.wv_v)
+        xu, xv, it_t = cg_kernel.pcg_solve_split(
+            lambda a, b: system_apply_split(sysm, a, b),
+            sysm.b_u, sysm.b_v, du, dv, rtol, maxiter, a12=sysm.a12, return_iters=True)
+        x_t = torch.stack([xu, xv], -1)
+        torch.cuda.synchronize()
+        scale = max(float(x_t.abs().max()), 1.0)
+        err = float((x_k - x_t).abs().max())
+        b = torch.stack([sysm.b_u, sysm.b_v], -1).double()
+        res = float(torch.linalg.norm(system_apply(FlowSystem(*[f.double() for f in sysm]), x_k.double()) - b) / torch.linalg.norm(b))
+        print(f"cg {name} 388x584 rtol {rtol:g}: iterations kernel {it_k} / plain {it_t}, "
+              f"max|dx| {err:.3e} (limit {1e-5 * scale:.3e}), relative residual {res:.3e} (limit {10 * rtol:g})")
+        check(err <= 1e-5 * scale, f"cg {name}: kernel differs from its twin")
+        check(res <= 10 * rtol, f"cg {name}: residual above 10 x rtol")
+        if name == "irls":
+            ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 10)
+            plain_ms = cuda_ms(torch, lambda: cg_kernel.cg_solve_plain(sysm, rtol, maxiter), 3)
+            print(f"cg irls 388x584 rtol 1e-3 ({it_k} iterations): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    return result
+
+
+def check_rof(torch, dev, card, rgb1, rgb2):
+    from optical_flow_tpu_torch.ops.cuda.rof_kernel import rof_structure, rof_structure_2d
+    from optical_flow_tpu_torch.utils.compat import preprocess_color_pair, scale_image
+
+    f32 = torch.float32
+    gray, _ = preprocess_color_pair(torch.as_tensor(rgb1, dtype=f32, device=dev), torch.as_tensor(rgb2, dtype=f32, device=dev))
+    im = scale_image(gray, -1, 1).permute(2, 0, 1).contiguous()  # (2, 388, 584), the texture stage's input
+    out = rof_structure(im, 1.0 / 8, 100)
+    ref = rof_structure_2d(im, 1.0 / 8, 100)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    print(f"rof 2x388x584, 100 iterations: max|d| {err:.3e} (limit 1e-6)")
+    check(err <= 1e-6, "ROF kernel differs from its twin")
+    ms = cuda_ms(torch, lambda: rof_structure(im, 1.0 / 8, 100), 10)
+    plain_ms = cuda_ms(torch, lambda: rof_structure_2d(im, 1.0 / 8, 100), 3)
+    print(f"rof 2x388x584: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+
+
+def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
+    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
+
+    estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)  # warm-up (allocator, cuBLAS)
+    torch.cuda.synchronize()
+
+    wmedian_kernel.launches = 0
+    rof_kernel.launches = 0
+    cg_kernel.reset_stats()
+    uv = estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
+    torch.cuda.synchronize()
+    launches = {"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches}
+    cg_iters = cg_kernel.iteration_counts(uv.device)[1]
+
+    uv_np = uv.cpu().numpy()
+    check(uv_np.shape == (388, 584, 2) and uv_np.dtype == np.float32, f"unexpected flow {uv_np.shape} {uv_np.dtype}")
+    check(np.isfinite(uv_np).all(), "flow is not finite")
+    aae, _, aepe = flow_angular_error(tu, tv, uv_np[..., 0], uv_np[..., 1])
+    print(f"main path RubberWhale 584x388 classic+nl-fast: AAE {aae:.4f} deg, AEPE {aepe:.5f} px "
+          f"(JAX float32: {TARGET_AAE} / {TARGET_AEPE})")
+    print(f"launches in one frame: {launches}, CG iterations {cg_iters}")
+    check(abs(aae - TARGET_AAE) <= GATE_AAE and abs(aepe - TARGET_AEPE) <= GATE_AEPE, "accuracy outside the classic+nl-fast gate")
+    check(launches["wmedian"] == 21 and launches["cg"] == 21 and launches["rof"] >= 1, f"unexpected launch counts {launches}")
+
+    ev_ms, host_ms = [], []
+    for _ in range(5):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        ev_ms.append(start.elapsed_time(end))
+    print(f"per-frame latency, median of 5 warm runs: {statistics.median(ev_ms):.2f} ms (CUDA events), "
+          f"{statistics.median(host_ms):.2f} ms (host clock)  [{card}]")
+    return launches
+
+
+def main():
+    try:
+        import torch
+    except ImportError:
+        print("chip_smoke: PyTorch is not installed", file=sys.stderr)
+        return 2
+    if not torch.cuda.is_available():
+        print("chip_smoke: no CUDA device; the smoke test needs one NVIDIA GPU", file=sys.stderr)
+        return 2
+    if not os.path.isdir(os.path.join(REPO, "optical_flow_tpu_torch")):
+        print("chip_smoke: optical_flow_tpu_torch is not beside this script", file=sys.stderr)
+        return 3
+    sys.path.insert(0, REPO)
+    from optical_flow_tpu_torch.io.flo import read_flow_file
+
+    try:
+        card = phase_setup(torch)
+        dev = torch.device("cuda", 0)
+        rng = np.random.default_rng(SEED)
+        rgb1, rgb2, tu, tv = read_flow_file("RubberWhale", 10)
+        results = {
+            "wmedian": check_wmedian(torch, dev, card, rng),
+            "cg": check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv),
+            "rof": check_rof(torch, dev, card, rgb1, rgb2),
+        }
+        launches = phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv)
+    except CheckFailed as e:
+        print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+        return 1
+
+    meta = {
+        "wmedian": ("optical_flow_tpu_torch/csrc/wmedian.cu", "optical_flow_tpu/ops/pallas/wmedian_kernel.py:202"),
+        "cg": ("optical_flow_tpu_torch/csrc/cg.cu", "optical_flow_tpu/ops/pallas/cg_kernel.py:160"),
+        "rof": ("optical_flow_tpu_torch/csrc/rof.cu", "optical_flow_tpu/ops/pallas/rof_kernel.py:75"),
+    }
+    kernels = [
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **results[name]}
+        for name, (src, rep) in meta.items()
+    ]
+    print(json.dumps({"kernels": kernels}))
+    print(card_line())
+    print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                             "count": torch.cuda.device_count()}}))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

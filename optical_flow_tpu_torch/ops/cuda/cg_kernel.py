@@ -1,0 +1,134 @@
+"""Whole-PCG flow solve: the CUDA kernel ``csrc/cg.cu`` and its plain twin.
+
+Replaces the Pallas kernel ``_cg_kernel`` / ``cg_solve_pallas``
+(``optical_flow_tpu/ops/pallas/cg_kernel.py``): block-Jacobi (per-pixel 2x2)
+PCG on the coupled 2-field 5-point system, from x0 = 0, stopping when
+``||r||^2 <= rtol^2 ||b||^2`` (tested before every iteration) or at
+``maxiter``.
+
+On the H100 an iteration is bound by plane traffic (~100 bytes per pixel,
+L2-resident at the main path's sizes) and by grid-wide synchronisation.
+The kernel runs the whole loop in one cooperative launch (three grid
+barriers per iteration, dot products reduced per block then in a fixed
+order by every block), so a solve costs one launch and no host round trip;
+the plain twin below costs ~10 launches and a host sync per iteration.
+"""
+from __future__ import annotations
+
+import torch
+
+from optical_flow_tpu_torch.ops.cuda.build import check, current_stream, load_library, require_cuda_f32
+from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply_split, weighted_laplacian_diag
+
+_MAX_BLOCKS = 2048  # kMaxBlocks in csrc/cg.cu
+launches = 0  # kernel launches (one per solve)
+_iters = {}  # device -> int32 (2,): [last solve's iterations, running total]
+
+
+def reset_stats() -> None:
+    """Zero the launch count and the on-device iteration total."""
+    global launches
+    launches = 0
+    for buf in _iters.values():
+        buf.zero_()
+
+
+def iteration_counts(device) -> tuple:
+    """(iterations of the last kernel solve, iterations summed since
+    :func:`reset_stats`) on ``device``; reading them synchronises."""
+    buf = _iters.get(torch.device(device))
+    return (0, 0) if buf is None else (int(buf[0]), int(buf[1]))
+
+
+def _block_jacobi_split(du, dv, a12):
+    """Exact inverse of the per-pixel 2x2 block [[du, a12], [a12, dv]], acting on
+    (ru, rv) plane pairs; the zeroed-inverse diagonal where the block is singular."""
+    zero = torch.zeros((), dtype=du.dtype, device=du.device)
+    one = torch.ones((), dtype=du.dtype, device=du.device)
+    dinv_u = torch.where(torch.abs(du) > 1e-12, 1.0 / du, zero)
+    dinv_v = torch.where(torch.abs(dv) > 1e-12, 1.0 / dv, zero)
+    det = du * dv - a12 * a12
+    ok = torch.abs(det) > 1e-12
+    safe = torch.where(ok, det, one)
+    i00 = torch.where(ok, dv / safe, dinv_u)
+    i01 = torch.where(ok, -a12 / safe, zero)
+    i11 = torch.where(ok, du / safe, dinv_v)
+    return lambda ru, rv: (i00 * ru + i01 * rv, i01 * ru + i11 * rv)
+
+
+def _dot2(au, av, bu, bv):
+    return torch.sum(au * bu) + torch.sum(av * bv)
+
+
+def pcg_solve_split(apply_A, bu, bv, du, dv, rtol, maxiter, *, a12, return_iters=False):
+    """Plain twin: block-Jacobi PCG with channel-split (H, W) plane state, from x0 = 0.
+
+    The classic recurrence of the JAX package's ``pcg_solve_split``; the
+    stopping test reads ``||r||^2`` on the host every iteration.
+    """
+    xu, xv = torch.zeros_like(bu), torch.zeros_like(bv)
+    precond = _block_jacobi_split(du, dv, a12)
+    ru, rv = bu, bv
+    zu, zv = precond(ru, rv)
+    pu, pv = zu, zv
+    rz = _dot2(ru, rv, zu, zv)
+    tol2 = (rtol**2) * _dot2(bu, bv, bu, bv)
+    zero = torch.zeros((), dtype=bu.dtype, device=bu.device)
+    k = 0
+    while k < maxiter and bool(_dot2(ru, rv, ru, rv) > tol2):
+        Apu, Apv = apply_A(pu, pv)
+        pAp = _dot2(pu, pv, Apu, Apv)
+        alpha = torch.where(pAp != 0.0, rz / pAp, zero)
+        xu = xu + alpha * pu
+        xv = xv + alpha * pv
+        ru = ru - alpha * Apu
+        rv = rv - alpha * Apv
+        zu, zv = precond(ru, rv)
+        rz_new = _dot2(ru, rv, zu, zv)
+        beta = torch.where(rz != 0.0, rz_new / rz, zero)
+        pu = zu + beta * pu
+        pv = zv + beta * pv
+        rz = rz_new
+        k += 1
+    if return_iters:
+        return xu, xv, k
+    return xu, xv
+
+
+def cg_solve_plain(sys: FlowSystem, rtol: float, maxiter: int):
+    """The plain twin on a :class:`FlowSystem`, from x0 = 0; returns (H, W, 2)."""
+    du = sys.a11 + weighted_laplacian_diag(sys.wu_h, sys.wu_v)
+    dv = sys.a22 + weighted_laplacian_diag(sys.wv_h, sys.wv_v)
+    xu, xv = pcg_solve_split(
+        lambda xu, xv: system_apply_split(sys, xu, xv),
+        sys.b_u, sys.b_v, du, dv, rtol, maxiter, a12=sys.a12,
+    )
+    return torch.stack([xu, xv], dim=-1)
+
+
+def cg_solve(sys: FlowSystem, rtol: float, maxiter: int):
+    """Solve ``sys`` from x0 = 0 and return the (H, W, 2) update.
+
+    CPU tensors run the plain twin; contiguous float32 CUDA planes run the
+    kernel; anything else raises.
+    """
+    global launches
+    if sys.a11.device.type == "cpu":
+        return cg_solve_plain(sys, rtol, maxiter)
+    planes = [f.contiguous() for f in sys]
+    require_cuda_f32("cg_solve", *planes)
+    H, W = planes[0].shape
+    dev = planes[0].device
+    lib = load_library()
+    x = torch.empty((H, W, 2), dtype=torch.float32, device=dev)
+    work = torch.empty((11, H, W), dtype=torch.float32, device=dev)
+    partials = torch.empty(4 * _MAX_BLOCKS, dtype=torch.float64, device=dev)
+    if dev not in _iters:
+        _iters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
+    err = lib.cg_solve_f32(
+        *[p.data_ptr() for p in planes], x.data_ptr(), work.data_ptr(), partials.data_ptr(),
+        _iters[dev].data_ptr(), H, W, float(rtol) ** 2, int(maxiter), current_stream(dev),
+    )
+    check(err, "cg_solve_f32")
+    launches += 1
+    return x

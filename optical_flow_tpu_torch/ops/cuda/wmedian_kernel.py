@@ -1,0 +1,106 @@
+"""Colour-guided weighted median: the CUDA kernel ``csrc/wmedian.cu`` and its plain twin.
+
+Replaces the Pallas kernel ``_wmedian_kernel`` / ``wmedian_pallas``
+(``optical_flow_tpu/ops/pallas/wmedian_kernel.py``).  For u and v, the
+occlusion- and colour-weighted median over a (2h+1)^2 window, with weights
+``max(exp(-sum_c dc^2 / (2 sigma^2)) * occ, 1e-10)``.
+
+On the H100 the kernel is bound by shared-memory traffic and issue, not by
+device memory: per pixel it computes 225 weights once, then runs 32
+bisection rounds per field over 225 (key, weight) pairs held in shared
+memory.  One thread per output pixel; a block of 128 pixels keeps its
+weights (115 KB at hsz 7) and its input windows in shared memory (dynamic
+opt-in), so device memory sees each input about once.  The plain twin
+sorts (H, W, 225) patch stacks instead, ~1 GB of temporaries at 388x584.
+"""
+from __future__ import annotations
+
+import torch
+
+from optical_flow_tpu_torch.ops.cuda.build import check, current_stream, load_library, require_cuda_f32
+
+MAX_HSZ = 12
+launches = 0  # kernel launches (one per call)
+
+
+def _patch_stack(padded, H, W, k):
+    """(H+2h, W+2h) padded -> (H, W, k*k) shifted views, offset order dy-major."""
+    return padded.unfold(0, k, 1).unfold(1, k, 1).reshape(H, W, k * k)
+
+
+def _weighted_median_lastaxis(values, weights):
+    """Weighted median along the last axis: the first sorted sample whose
+    cumulative weight reaches half the total.  The sort is stable, as
+    ``lax.sort`` is, so tied values keep their weights' order."""
+    v_sorted, order = torch.sort(values, dim=-1, stable=True)
+    w_sorted = torch.gather(weights, -1, order)
+    cumw = torch.cumsum(w_sorted, dim=-1)
+    total = cumw[..., -1:]
+    idx = torch.argmax((cumw >= total / 2.0).to(torch.uint8), dim=-1, keepdim=True)
+    return torch.gather(v_sorted, -1, idx)[..., 0]
+
+
+def wmedfilt_prepadded(u_pad, v_pad, occ_pad, color_pad, color_center, H, W, hsz, sigma_i):
+    """Plain twin on pre-padded fields: (H+2h, W+2h) u, v, occ, (H+2h, W+2h, C)
+    guide and the (H, W, C) guide at the output pixels -> (H, W, 2).
+
+    Rows run in chunks of at most 64 Mi patch-stack elements each.
+    """
+    k = 2 * hsz + 1
+    C = color_pad.shape[2]
+    inv_2sigma2 = 1.0 / (2.0 * sigma_i**2)
+    row_chunk = max(1, min(H, (64 * 1024 * 1024) // (W * k * k)))
+    outs = []
+    for r0 in range(0, H, row_chunk):
+        rows = min(row_chunk, H - r0)
+        sl = slice(r0, r0 + rows + 2 * hsz)
+        up = _patch_stack(u_pad[sl], rows, W, k)
+        vp = _patch_stack(v_pad[sl], rows, W, k)
+        op = _patch_stack(occ_pad[sl], rows, W, k)
+        cdiff = torch.zeros_like(op)
+        for c in range(C):
+            cp = _patch_stack(color_pad[sl, :, c], rows, W, k)
+            center = color_center[r0 : r0 + rows, :, c][:, :, None]
+            cdiff = cdiff + (cp - center) ** 2
+        w = torch.clamp(torch.exp(-cdiff * inv_2sigma2) * op, min=1e-10)
+        outs.append(torch.stack([_weighted_median_lastaxis(up, w), _weighted_median_lastaxis(vp, w)], dim=-1))
+    return torch.cat(outs, dim=0)
+
+
+def wmedian_plain(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz, sigma_i):
+    """The plain twin with the kernel's signature (guide channel-major)."""
+    H, W = out_hw
+    color_pad = guide_pad.permute(1, 2, 0)
+    color_center = color_pad[hsz : hsz + H, hsz : hsz + W]
+    return wmedfilt_prepadded(u_pad, v_pad, occ_pad, color_pad, color_center, H, W, hsz, float(sigma_i))
+
+
+def wmedian(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz: int, sigma_i: float):
+    """Weighted median of both flow fields -> (H, W, 2).
+
+    ``u_pad``, ``v_pad``, ``occ_pad``: (H+2h, W+2h) mirror-padded fields;
+    ``guide_pad``: (C, H+2h, W+2h) padded guide.  CPU tensors run the plain
+    twin; contiguous float32 CUDA tensors run the kernel (hsz <= 12);
+    anything else raises.
+    """
+    global launches
+    if u_pad.device.type == "cpu":
+        return wmedian_plain(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz, sigma_i)
+    require_cuda_f32("wmedian", u_pad, v_pad, occ_pad, guide_pad)
+    hsz = int(hsz)
+    if not 0 <= hsz <= MAX_HSZ:
+        raise ValueError(f"wmedian: the kernel covers hsz <= {MAX_HSZ}, got {hsz}")
+    H, W = int(out_hw[0]), int(out_hw[1])
+    C = guide_pad.shape[0]
+    for t in (u_pad, v_pad, occ_pad, guide_pad[0]):
+        if tuple(t.shape) != (H + 2 * hsz, W + 2 * hsz):
+            raise ValueError(f"wmedian: padded planes must be {(H + 2 * hsz, W + 2 * hsz)}, got {tuple(t.shape)}")
+    lib = load_library()
+    out = torch.empty((H, W, 2), dtype=torch.float32, device=u_pad.device)
+    err = lib.wmedian_f32(
+        u_pad.data_ptr(), v_pad.data_ptr(), occ_pad.data_ptr(), guide_pad.data_ptr(), out.data_ptr(),
+        1, C, H, W, hsz, float(1.0 / (2.0 * sigma_i**2)), current_stream(u_pad.device),
+    )
+    check(err, "wmedian_f32")
+    launches += 1
+    return out
