@@ -7,22 +7,34 @@ Phases, each printing its results; any failed check exits non-zero:
 
 1. the card (name and power limit from nvidia-smi), torch and CUDA versions,
    the float32 matmul settings, and the build of the three CUDA kernels
-   from ``optical_flow_tpu_torch/csrc``;
+   from ``optical_flow_tpu_torch/csrc`` (ptxas registers and spills);
 2. each kernel against its plain PyTorch twin on the card at main-path
-   shapes, with both times (CUDA events);
+   shapes, with both times (CUDA events); for the weighted median also
+   window half-sizes 0, 1 and 12, the coarsest main-path level and a
+   repeat run (determinism);
 3. the main path, ``estimate_flow(rgb1, rgb2, "classic+nl-fast",
    {"display": False, "solver": "pcg"}, device="cuda")`` on RubberWhale
    584x388: finite output, AAE / AEPE against the ground truth within the
    classic+nl-fast gate, the kernels' launch counts for one frame, and the
-   per-frame latency.
+   per-frame latency;
+4. the weighted median on the inputs the main path gave it (recorded in a
+   warm-up frame): kernel against twin at the finest level, one call's
+   time at each level shape, the 21 calls' sum, and each call's bound;
+5. one frame under torch.profiler: device busy time, idle share and the
+   device time of each kernel.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
-JSON object lists each kernel.  Without a CUDA device, or without the
-rest of the repository beside it, the script exits non-zero and prints no
-result.  It imports neither JAX nor the JAX package.
+JSON object lists each kernel with its time, its plain twin's time and
+its bound (the larger of bytes over 3.35 TB/s and operations over the
+67 TFLOP/s float32 peak of an H100 SXM), all from phase 2.  The weighted
+median's entry adds phase 4's numbers under ``main_path_*`` and
+``frame_sum_*`` (the 21 calls summed).  Without a CUDA device, or
+without the rest of the repository beside it, the script exits non-zero
+and prints no result.  It imports neither JAX nor the JAX package.
 """
 import json
+import math
 import os
 import statistics
 import subprocess
@@ -38,6 +50,9 @@ TARGET_AAE, TARGET_AEPE = 2.500, 0.0813
 GATE_AAE, GATE_AEPE = 0.2, 0.01
 PARAMS = {"display": False, "solver": "pcg"}
 SEED = 0
+# an H100 SXM's published peaks (float32 outside the tensor cores; HBM3)
+PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
+INT32_MIN = -(2**31)
 
 
 class CheckFailed(Exception):
@@ -98,18 +113,112 @@ def _pad(torch, x, hsz, dev):
     return pad2d(torch.as_tensor(x, device=dev), hsz, hsz, hsz, hsz, "mirror").contiguous()
 
 
+def sm_clock_during(torch, fn, seconds=1.0):
+    """nvidia-smi's SM clock, its maximum and the power draw, sampled every
+    100 ms while ``fn`` runs back to back; the median sample."""
+    proc = subprocess.Popen(
+        ["nvidia-smi", "--query-gpu=clocks.sm,clocks.max.sm,power.draw", "--format=csv,noheader,nounits",
+         "-lms", "100"], stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    try:
+        t_end = time.time() + seconds
+        while time.time() < t_end:
+            for _ in range(20):
+                fn()
+            torch.cuda.synchronize()
+    finally:
+        proc.terminate()
+        out = proc.communicate(timeout=30)[0]
+    rows = [[float(x) for x in line.split(",")] for line in out.strip().splitlines() if line.count(",") == 2]
+    if not rows:
+        return "not measured"
+    clock, clock_max, power = rows[len(rows) // 2]
+    return f"{clock:.0f} MHz (max {clock_max:.0f} MHz), {power:.1f} W drawn, median of {len(rows)} samples"
+
+
+def bound(ops, nbytes):
+    """The least time the card could take: operations over the float32 peak or
+    bytes over the memory rate, whichever is larger."""
+    t_ops, t_bytes = ops / PEAK_F32_OPS, nbytes / PEAK_BYTES
+    return {"bound_ms": 1e3 * max(t_ops, t_bytes), "bound_by": "operations" if t_ops >= t_bytes else "bytes"}
+
+
+def _keys(torch, x):
+    """float32 -> order-isomorphic int32 keys (as int64), as the kernel encodes them."""
+    b = x.contiguous().view(torch.int32)
+    return torch.where(b < 0, torch.bitwise_not(b) ^ INT32_MIN, b).long()
+
+
+def wmedian_rounds(torch, args, out):
+    """Bisection rounds the kernel ran for ``out``, summed over pixels and fields.
+
+    The path from (min - 1, max) to the result key m is fixed by m, since
+    S(mid) >= total/2 exactly when mid >= m."""
+    u_pad, v_pad, _, _, (H, W), hsz, _ = args
+    k = 2 * hsz + 1
+    total = 0
+    for c, field in enumerate((u_pad, v_pad)):
+        win = _keys(torch, field).unfold(0, k, 1).unfold(1, k, 1)
+        lo, hi = win.amin((-2, -1)) - 1, win.amax((-2, -1))
+        m = _keys(torch, out[..., c])
+        for _ in range(32):
+            active = hi - lo > 1
+            mid = torch.div(lo + hi, 2, rounding_mode="floor")
+            ge = mid >= m
+            hi = torch.where(active & ge, mid, hi)
+            lo = torch.where(active & ~ge, mid, lo)
+            total += int(active.sum())
+    return total
+
+
+def wmedian_bound(args):
+    """Bound of one call, whatever the selection method: per pixel, K2 weights
+    at 3C + 5 operations, then for each field a sort's K2 log2 K2 compares and
+    K2 adds for the running sum."""
+    u_pad, _, _, guide_pad, (H, W), hsz, _ = args
+    C = guide_pad.shape[0]
+    K2 = (2 * hsz + 1) ** 2
+    ops = H * W * (K2 * (3 * C + 5) + 2 * (K2 * math.log2(K2) + K2))
+    nbytes = 4 * ((3 + C) * u_pad.numel() + 2 * H * W)
+    return bound(ops, nbytes)
+
+
+def _wmedian_case(torch, dev, rng, H, W, hsz, C, ties=False, color_hi=255.0):
+    uv = (3 * rng.standard_normal((H, W, 2))).astype(np.float32)
+    if ties:
+        uv = (np.round(rng.standard_normal((H, W, 2)) * 4) / 4).astype(np.float32)
+    color = rng.uniform(0, color_hi, (C, H, W)).astype(np.float32)
+    occ = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
+    return (_pad(torch, uv[..., 0], hsz, dev), _pad(torch, uv[..., 1], hsz, dev), _pad(torch, occ, hsz, dev),
+            _pad(torch, color, hsz, dev), (H, W), hsz, 7.0)
+
+
+def wmedian_agreement(torch, args, out, ref):
+    """(values that differ, share identical, every difference is an adjacent sample).
+
+    A differing value must be its window's sample adjacent (in sorted order)
+    to the twin's choice: the two sums' orders can only move the total/2
+    crossing across one sample."""
+    u_pad, v_pad, _, _, _, hsz, _ = args
+    diff = out != ref
+    n_diff = int(diff.sum())
+    adjacent = True
+    k = 2 * hsz + 1
+    for y, x, c in diff.nonzero().tolist():
+        win = (u_pad if c == 0 else v_pad)[y : y + k, x : x + k].reshape(-1)
+        a, b = out[y, x, c], ref[y, x, c]
+        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
+        present = bool((win == a).any()) and bool((win == b).any())
+        between = int(((win > lo) & (win < hi)).sum())
+        adjacent = adjacent and present and between == 0
+    return n_diff, 1.0 - n_diff / out.numel(), adjacent
+
+
 def check_wmedian(torch, dev, card, rng):
     from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
 
     cases = [((19, 23), 3, 3, False), ((40, 300), 7, 3, False), ((16, 260), 2, 1, False), ((12, 140), 4, 3, True)]
     for (H, W), hsz, C, ties in cases:
-        uv = (3 * rng.standard_normal((H, W, 2))).astype(np.float32)
-        if ties:
-            uv = (np.round(rng.standard_normal((H, W, 2)) * 4) / 4).astype(np.float32)
-        color = rng.uniform(0, 255, (C, H, W)).astype(np.float32)
-        occ = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
-        args = (_pad(torch, uv[..., 0], hsz, dev), _pad(torch, uv[..., 1], hsz, dev), _pad(torch, occ, hsz, dev),
-                _pad(torch, color, hsz, dev), (H, W), hsz, 7.0)
+        args = _wmedian_case(torch, dev, rng, H, W, hsz, C, ties)
         out = wmedian(*args)
         ref = wmedian_plain(*args)
         torch.cuda.synchronize()
@@ -119,37 +228,42 @@ def check_wmedian(torch, dev, card, rng):
 
     # the main path's finest level: 388x584, hsz 7, C 3
     H, W, hsz = 388, 584, 7
-    uv = (3 * rng.standard_normal((H, W, 2))).astype(np.float32)
-    color = rng.uniform(0, 255, (3, H, W)).astype(np.float32)
-    occ = rng.uniform(0.1, 1.0, (H, W)).astype(np.float32)
-    u_pad = _pad(torch, uv[..., 0], hsz, dev)
-    args = (u_pad, _pad(torch, uv[..., 1], hsz, dev), _pad(torch, occ, hsz, dev), _pad(torch, color, hsz, dev), (H, W), hsz, 7.0)
+    args = _wmedian_case(torch, dev, rng, H, W, hsz, 3)
     out = wmedian(*args)
     ref = wmedian_plain(*args)
     torch.cuda.synchronize()
-    diff = out != ref
-    n_diff = int(diff.sum())
-    frac = 1.0 - n_diff / out.numel()
-    # every differing value must be its window's sample adjacent (in sorted
-    # order) to the twin's choice: the two sums' orders can only move the
-    # total/2 crossing across one sample
-    adjacent = True
-    k = 2 * hsz + 1
-    v_pad = args[1]
-    for y, x, c in diff.nonzero().tolist():
-        win = (u_pad if c == 0 else v_pad)[y : y + k, x : x + k].reshape(-1)
-        a, b = out[y, x, c], ref[y, x, c]
-        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
-        present = bool((win == a).any()) and bool((win == b).any())
-        between = int(((win > lo) & (win < hi)).sum())
-        adjacent = adjacent and present and between == 0
+    n_diff, frac, adjacent = wmedian_agreement(torch, args, out, ref)
     print(f"wmedian {H}x{W} hsz {hsz} C 3: {n_diff} of {out.numel()} values differ "
           f"({100 * frac:.4f}% identical), all adjacent samples: {adjacent}")
     check(frac >= 0.9999 and adjacent, "weighted median outside the adjacent-sample criterion at 388x584")
     ms = cuda_ms(torch, lambda: wmedian(*args), 10)
     plain_ms = cuda_ms(torch, lambda: wmedian_plain(*args), 3)
     print(f"wmedian 388x584 hsz 7: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
-    return {"max_abs_err": float((out - ref).abs().max()), "ms": ms, "plain_ms": plain_ms}
+    again = wmedian(*args)
+    torch.cuda.synchronize()
+    print(f"wmedian 388x584 hsz 7, run twice: torch.equal {torch.equal(again, out)}")
+    check(torch.equal(again, out), "weighted median differs between two runs on the same input")
+    b = wmedian_bound(args)
+    rounds = wmedian_rounds(torch, args, out) / (2 * H * W)
+    print(f"wmedian 388x584 hsz 7 random fields: {rounds:.2f} rounds per pixel and field, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})")
+    result = {"max_abs_err": float((out - ref).abs().max()), "ms": ms, "plain_ms": plain_ms, **b}
+
+    # window half-sizes 0, 1 and 12 (1, 1 and 32 lanes a pixel) with the
+    # kernels for C 3 and for any other C, and the coarsest main-path levels,
+    # on shapes that are no multiple of a tile; a narrow colour range spreads
+    # the weights
+    rng_new = np.random.default_rng(SEED + 1)
+    for (H, W), hsz, C in [((27, 41), 0, 1), ((27, 41), 0, 3), ((23, 45), 1, 1), ((23, 45), 1, 3),
+                           ((29, 43), 12, 1), ((29, 43), 12, 3), ((24, 37), 7, 3), ((25, 37), 7, 3)]:
+        args = _wmedian_case(torch, dev, rng_new, H, W, hsz, C, color_hi=24.0)
+        out = wmedian(*args)
+        ref = wmedian_plain(*args)
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum())
+        print(f"wmedian {H}x{W} hsz {hsz} C {C} (colours 0-24): {n_diff} differing values (bit-exact required)")
+        check(n_diff == 0, f"weighted median is not bit-exact with its twin at {H}x{W} hsz {hsz} C {C}")
+    return result
 
 
 def _irls_system(torch, dev, rgb1, rgb2, tu, tv):
@@ -215,8 +329,13 @@ def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
         if name == "irls":
             ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 10)
             plain_ms = cuda_ms(torch, lambda: cg_kernel.cg_solve_plain(sysm, rtol, maxiter), 3)
-            print(f"cg irls 388x584 rtol 1e-3 ({it_k} iterations): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
-            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+            # per pixel: setup ~33 operations (preconditioner, z, two dots), then
+            # per iteration ~58 (A p 28, p.Ap 4, x 4, r 4, z 6, r.z 4, r.r 4, p 4);
+            # bytes: the 9 system planes in, the (H, W, 2) solution out
+            b = bound(H * W * (33 + 58 * it_k), 4 * 11 * H * W)
+            print(f"cg irls 388x584 rtol 1e-3 ({it_k} iterations): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+                  f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
     return result
 
 
@@ -235,15 +354,34 @@ def check_rof(torch, dev, card, rgb1, rgb2):
     check(err <= 1e-6, "ROF kernel differs from its twin")
     ms = cuda_ms(torch, lambda: rof_structure(im, 1.0 / 8, 100), 10)
     plain_ms = cuda_ms(torch, lambda: rof_structure_2d(im, 1.0 / 8, 100), 3)
-    print(f"rof 2x388x584: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms}
+    # per pixel and iteration ~28 operations (the primal at three points 15,
+    # the gradient 2, the dual step 4, the norm 5, the division 2), then 5 for
+    # the final primal; bytes: the image in, the structure out
+    n = im.numel()
+    b = bound(n * (28 * 100 + 5), 8 * n)
+    print(f"rof 2x388x584: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
 
 
 def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
     from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.ops import wmedian as wmedian_op
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
 
-    estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)  # warm-up (allocator, cuBLAS)
+    # warm-up (allocator, cuBLAS), keeping a copy of each weighted median's inputs
+    recorded = []
+    kernel_call = wmedian_op.wmedian
+
+    def recording(*args):
+        recorded.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return kernel_call(*args)
+
+    wmedian_op.wmedian = recording
+    try:
+        estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
+    finally:
+        wmedian_op.wmedian = kernel_call
     torch.cuda.synchronize()
 
     wmedian_kernel.launches = 0
@@ -276,9 +414,88 @@ def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
         torch.cuda.synchronize()
         host_ms.append(1e3 * (time.perf_counter() - t0))
         ev_ms.append(start.elapsed_time(end))
-    print(f"per-frame latency, median of 5 warm runs: {statistics.median(ev_ms):.2f} ms (CUDA events), "
+    frame_ms = statistics.median(ev_ms)
+    print(f"per-frame latency, median of 5 warm runs: {frame_ms:.2f} ms (CUDA events), "
           f"{statistics.median(host_ms):.2f} ms (host clock)  [{card}]")
-    return launches
+    return launches, recorded, frame_ms
+
+
+def phase_wmedian_levels(torch, card, recorded):
+    """The weighted median on the main path's own inputs: kernel against twin at
+    the finest level, one call's time at each level shape, and the frame's sum."""
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
+
+    check(len(recorded) == 21, f"recorded {len(recorded)} weighted-median calls in a frame, expected 21")
+    finest = max(recorded, key=lambda a: a[4][0] * a[4][1])
+    H, W = finest[4]
+    out = wmedian(*finest)
+    ref = wmedian_plain(*finest)
+    torch.cuda.synchronize()
+    n_diff, frac, adjacent = wmedian_agreement(torch, finest, out, ref)
+    print(f"wmedian main-path input {H}x{W} hsz {finest[5]}: {n_diff} of {out.numel()} values differ "
+          f"({100 * frac:.4f}% identical), all adjacent samples: {adjacent}")
+    check(frac >= 0.9999 and adjacent, "weighted median outside the adjacent-sample criterion on the main path's input")
+    again = wmedian(*finest)
+    torch.cuda.synchronize()
+    check(torch.equal(again, out), "weighted median differs between two runs on the main path's input")
+    ms = cuda_ms(torch, lambda: wmedian(*finest), 20)
+    plain_ms = cuda_ms(torch, lambda: wmedian_plain(*finest), 3)
+    b = wmedian_bound(finest)
+    rounds = wmedian_rounds(torch, finest, out) / (2 * H * W)
+    print(f"wmedian main-path input {H}x{W}: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"{rounds:.2f} rounds per pixel and field, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    print(f"SM clock while the weighted median runs: {sm_clock_during(torch, lambda: wmedian(*finest))}")
+
+    levels, frame_ms, frame_bound = {}, 0.0, 0.0
+    for args in recorded:
+        frame_ms += cuda_ms(torch, lambda: wmedian(*args), 5)
+        frame_bound += wmedian_bound(args)["bound_ms"]
+        if args[4] not in levels:
+            h, w = args[4]
+            levels[args[4]] = (cuda_ms(torch, lambda: wmedian(*args), 20), wmedian_bound(args)["bound_ms"],
+                               wmedian_rounds(torch, args, wmedian(*args)) / (2 * h * w))
+    for (h, w), (t, cb, r) in levels.items():
+        print(f"wmedian level {h}x{w}: {t:.4f} ms, {r:.2f} rounds per pixel and field, bound {cb:.4f} ms  [{card}]")
+    print(f"wmedian, the frame's 21 calls one by one: {frame_ms:.3f} ms, bound {frame_bound:.4f} ms  [{card}]")
+    return {"main_path_ms": ms, "main_path_plain_ms": plain_ms, "main_path_bound_ms": b["bound_ms"],
+            "main_path_max_abs_err": float((out - ref).abs().max()),
+            "frame_sum_ms": frame_ms, "frame_sum_bound_ms": frame_bound}
+
+
+def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms):
+    """One warm frame under torch.profiler: device busy time (the union of the
+    device intervals), idle share, and device time by kernel."""
+    from torch.autograd import DeviceType
+    from torch.profiler import ProfilerActivity, profile
+
+    from optical_flow_tpu_torch import estimate_flow
+
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
+        torch.cuda.synchronize()
+        wall_ms = 1e3 * (time.perf_counter() - t0)
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    if not events:
+        print("profiled frame: the trace holds no device events; device split not measured")
+        return
+    spans = sorted((e.time_range.start, e.time_range.end) for e in events)
+    busy_us, end = 0.0, float("-inf")
+    for a, b in spans:
+        if b > end:
+            busy_us += b - max(a, end)
+            end = b
+    split = {"wmedian": 0.0, "cg": 0.0, "rof": 0.0, "other": 0.0}
+    for e in events:
+        key = next((k for k, tag in (("wmedian", "wmedian_kernel"), ("cg", "cg_kernel"), ("rof", "rof_"))
+                    if tag in e.name), "other")
+        split[key] += e.time_range.end - e.time_range.start
+    busy_ms = busy_us / 1e3
+    print(f"profiled frame: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, {len(events)} device events, "
+          f"idle share {1 - busy_ms / wall_ms:.3f} of the profiled frame and {1 - busy_ms / frame_ms:.3f} "
+          f"of the unprofiled {frame_ms:.2f} ms frame  [{card}]")
+    print("profiled frame, device ms by kernel: " + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in split.items()))
 
 
 def main():
@@ -306,7 +523,10 @@ def main():
             "cg": check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv),
             "rof": check_rof(torch, dev, card, rgb1, rgb2),
         }
-        launches = phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv)
+        launches, recorded, frame_ms = phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv)
+        results["wmedian"].update(phase_wmedian_levels(torch, card, recorded))
+        del recorded
+        phase_profile(torch, dev, card, rgb1, rgb2, frame_ms)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -317,7 +537,9 @@ def main():
         "rof": ("optical_flow_tpu_torch/csrc/rof.cu", "optical_flow_tpu/ops/pallas/rof_kernel.py:75"),
     }
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name], **results[name]}
+        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+         # no one PyTorch call computes any of the three functions
+         **results[name], "library_ms": None}
         for name, (src, rep) in meta.items()
     ]
     print(json.dumps({"kernels": kernels}))

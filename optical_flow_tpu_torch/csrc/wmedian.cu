@@ -1,33 +1,93 @@
 // Colour-guided weighted median of both flow fields over (2h+1)^2 windows,
 // by exact bisection over order-isomorphic int32 keys.  Replaces the Pallas
-// kernel _wmedian_kernel / wmedian_pallas
+// kernel _wmedian_kernel / _wmedian_call
 // (optical_flow_tpu/ops/pallas/wmedian_kernel.py).
 //
 // The weighted median of a window is the smallest key m whose summed
-// weight S(m) (weights of samples with key <= m) reaches total/2.  32 rounds
-// of integer bisection find m exactly; S only jumps at present keys, so the
-// result is always one of the window's samples -- the sort + cumsum +
-// searchsorted selection, without sorting.
+// weight S(m) (weights of samples with key <= m) reaches total/2.  Integer
+// bisection finds m exactly; S only jumps at present keys, so the result is
+// always one of the window's samples -- the sort + cumsum + first-crossing
+// selection of the plain twin, without sorting.
 //
-// Bound on the H100: shared-memory bandwidth and issue.  Per pixel, the 225
-// weights cost 225 expf once, then each field runs 32 rounds over the 225
-// (key, weight) pairs: ~14k shared loads, compares and adds per pixel,
-// against ~30 bytes of device memory.  The design: one thread per output
-// pixel; a block stages the (tile + 2h)^2 windows of u and v (as keys), of
-// occ and of the guide in shared memory, computes the 225 weights once into
-// shared memory (laid out offset-major so a warp's loads hit consecutive
-// banks), and then bisects each field with keys read from the window.
-// Weights and partial sums are accumulated in offset order; every float
-// operation rounds as the plain PyTorch version does (--fmad=false, expf),
-// so the weights are bit-identical to the plain version's.
+// Bound on the H100, at the main path's finest level (388x584, hsz 7, C 3):
+// operations, counted independently of the selection method.  Per pixel
+// the 225 weights cost 3C + 5 = 14 operations each (channel differences
+// squared and summed, the scale, expf, the occlusion product, the max, the
+// running total), and selecting each field's weighted median costs a sort's
+// K2 log2 K2 compares plus K2 adds for the running sum: ~7.1k operations
+// per pixel, 1.6 G per call, 0.024 ms at the 67 TFLOP/s float32 peak.  The
+// bytes (six padded 402x598 planes in, 388x584x2 out, 7.6 MB) take 2.3 us
+// at 3.35 TB/s.  Bisection does more work than a sort (a compare and an add
+// per sample, field and round, ~25k operations per pixel at 28 rounds) but
+// keeps each lane's samples in registers and never reorders them.
+//
+// The first design gave each output pixel one thread whose 225 weights lived
+// in shared memory: 115 KB per 128-pixel block, so one block and 4 warps per
+// SM, ~40 cycles per (round, sample) step with the shared-memory latency
+// exposed, and a fixed 32 rounds.  This design:
+//  - G lanes own one output pixel (G a power of two: 8 at hsz 7, see
+//    lanes_for).  Lane l holds the window samples o = s * G + l for
+//    s < NS = ceil(K2 / G) as (key, weight) pairs in registers, so the
+//    bisection loop does no memory traffic: a compare and a predicated add
+//    per slot and round.
+//  - A block stages only the window planes (the keys of u and v, encoded
+//    once, occ and the guide) for its tile plus halo in shared memory, about
+//    10 KB; registers set the occupancy, capped by __launch_bounds__ at 128
+//    per thread for 16 warps per SM.  The fields run one after the other, so
+//    only one field's keys are live beside the weights.
+//  - The main path's 3-channel guide has its own kernel, with the channel
+//    loop unrolled: the run-time-C kernel alone ran 19% slower at 388x584
+//    (PERF.md).  Other channel counts read C at run time.
+//  - Every sum (the total and each S(mid)) is a per-lane sum in slot order,
+//    then a xor butterfly over the group: at each step both partners add
+//    the same two values, so all G lanes hold bit-identical sums, the branch
+//    on S >= total/2 is uniform in the group, and results repeat run to run.
+//    No atomics.
+//  - Each field's loop stops once hi = lo + 1.  That is where a fixed 32
+//    rounds end too: from there mid = lo, S(lo) < total/2 and nothing
+//    changes, so the early exit returns the 32-round result bit for bit.
+//    On RubberWhale's main path a pixel's field needs 25-31 rounds.
+//  - Blocks of 256 threads shrink, down to one warp, while the grid would
+//    have fewer than two blocks per SM, so the coarse levels spread over the
+//    card.
+// The weights round as the plain twin's (--fmad=false, expf, no fast math)
+// and are bit-identical to them.  The sums run in another order than the
+// twin's sorted cumsum, so where S(m) lands within rounding of total/2 the
+// result can be the adjacent sample; chip_smoke.py checks that criterion.
 #include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kTileW = 16;  // output columns per block; rows = threads / kTileW
 constexpr int kMaxHsz = 12;
+constexpr int kMaxSlots = 29;     // register slots per lane at the default lane counts
+constexpr int kThreads = 256;     // threads per block on large levels
+constexpr int kMinThreads = 32;   // ... and the fewest, on small ones
 constexpr int kMaxSmem = 232448;  // the H100's per-block opt-in limit
+
+// Lanes per output pixel: the fewest (a power of two) that leave at most
+// kMaxSlots window samples to each lane.  hsz 0-2: 1, 3: 2, 4: 4, 5-7: 8,
+// 8-10: 16, 11-12: 32.
+__host__ __device__ constexpr int lanes_for(int hsz) {
+  int g = 1;
+  while (((2 * hsz + 1) * (2 * hsz + 1) + g - 1) / g > kMaxSlots) g *= 2;
+  return g;
+}
+
+__host__ __device__ constexpr int slots_for(int hsz, int lanes) {
+  return ((2 * hsz + 1) * (2 * hsz + 1) + lanes - 1) / lanes;
+}
+
+// Blocks per SM that __launch_bounds__ asks for: 2 (<= 128 registers a
+// thread) while a field's keys and the weights take at most 96 registers.
+__host__ __device__ constexpr int min_blocks_for(int slots) { return 2 * slots <= 96 ? 2 : 1; }
+
+struct Args {
+  const float *u, *v, *occ, *guide;  // (B, Hp, Wp) x 3, (B, C, Hp, Wp)
+  float* out;                        // (B, H, W, 2)
+  int B, C, H, W;
+  float inv_2s2;
+};
 
 __device__ __forceinline__ int encode_f32(float x) {
   const int b = __float_as_int(x);
@@ -38,102 +98,211 @@ __device__ __forceinline__ float decode_i32(int key) {
   return __int_as_float(key < 0 ? ~(key ^ INT_MIN) : key);
 }
 
-// Weighted median of one field: keys of the window at `base`, weights w_s.
-__device__ float bisect(const int* keys, const float* w_s, int T, int K2, int k, int WC, int base,
-                        float half) {
-  int lo = INT_MAX, hi = INT_MIN;
-  for (int o = 0; o < K2; ++o) {
-    const int key = keys[base + (o / k) * WC + (o % k)];
-    lo = min(lo, key);
-    hi = max(hi, key);
+// The lanes of this thread's group within its warp.
+template <int G>
+__device__ __forceinline__ unsigned group_mask() {
+  if constexpr (G == 32) {
+    return 0xffffffffu;
+  } else {
+    return ((1u << G) - 1u) << ((threadIdx.x & 31) & ~(G - 1));
   }
-  lo -= 1;  // S(lo) < half; a finite float never encodes to INT_MIN
-  for (int round = 0; round < 32; ++round) {
-    const int mid = (lo & hi) + ((lo ^ hi) >> 1);  // floor((lo + hi) / 2), no overflow
-    float S = 0.0f;
-    int o = 0;
-    for (int dy = 0; dy < k; ++dy) {
-      const int row = base + dy * WC;
-      for (int dx = 0; dx < k; ++dx, ++o) {
-        if (keys[row + dx] <= mid) S = S + w_s[o * T + threadIdx.x];
-      }
+}
+
+// Butterfly sum over the group: every lane ends with the same bits.
+template <int G>
+__device__ __forceinline__ float group_sum(float s, unsigned mask) {
+#pragma unroll
+  for (int m = 1; m < G; m <<= 1) s = s + __shfl_xor_sync(mask, s, m);
+  return s;
+}
+
+// Shared-memory window index of this lane's slot s (valid when o < K2).
+template <int HSZ, int G>
+__device__ __forceinline__ int slot_index(int s, int lane, int base, int WC) {
+  constexpr int K = 2 * HSZ + 1;
+  const int o = s * G + lane;
+  return base + (o / K) * WC + o % K;
+}
+
+// This lane's keys of one field; lo and hi become the group's min - 1 and
+// max.  Slots past the window hold INT_MAX, which no mid reaches.
+template <int HSZ, int G, int NS>
+__device__ __forceinline__ void load_keys(const int* keys, int (&key)[NS], int& lo, int& hi,
+                                          int lane, int base, int WC, unsigned mask) {
+  constexpr int K2 = (2 * HSZ + 1) * (2 * HSZ + 1);
+  lo = INT_MAX;
+  hi = INT_MIN;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    if (s * G + lane < K2) {
+      key[s] = keys[slot_index<HSZ, G>(s, lane, base, WC)];
+      lo = min(lo, key[s]);
+      hi = max(hi, key[s]);
+    } else {
+      key[s] = INT_MAX;
     }
-    if (S >= half) {
+  }
+  // S(lo) = 0 < total/2; a finite float never encodes to INT_MIN
+  lo = __reduce_min_sync(mask, lo) - 1;
+  hi = __reduce_max_sync(mask, hi);
+}
+
+// This lane's share of S(mid), summed in slot order.
+template <int NS>
+__device__ __forceinline__ float lane_below(const int (&key)[NS], const float (&w)[NS], int mid) {
+  float s = 0.0f;
+#pragma unroll
+  for (int i = 0; i < NS; ++i) {
+    if (key[i] <= mid) s = s + w[i];
+  }
+  return s;
+}
+
+// Bisection of one field: S(lo) < half <= S(hi) throughout.
+template <int G, int NS>
+__device__ __forceinline__ int bisect(const int (&key)[NS], const float (&w)[NS], int lo, int hi,
+                                      float half, unsigned mask) {
+  // hi - lo can exceed INT_MAX: compare it unsigned
+  for (int round = 0; round < 32 && (unsigned)hi - (unsigned)lo > 1u; ++round) {
+    const int mid = (lo & hi) + ((lo ^ hi) >> 1);  // floor((lo + hi) / 2), no overflow
+    if (group_sum<G>(lane_below(key, w, mid), mask) >= half) {
       hi = mid;
     } else {
       lo = mid;
     }
   }
-  return decode_i32(hi);
+  return hi;
 }
 
-__global__ void wmedian_kernel(const float* __restrict__ u, const float* __restrict__ v,
-                               const float* __restrict__ occ, const float* __restrict__ guide,
-                               float* __restrict__ out, int C, int H, int W, int hsz, float inv_2s2,
-                               int tile_h) {
+// kC: the guide's channel count, or 0 to read it from a.C
+template <int HSZ, int G, int kC>
+__global__ void __launch_bounds__(kThreads, min_blocks_for(slots_for(HSZ, G)))
+    wmedian_kernel(Args a, int tile_w, int tile_h) {
+  constexpr int K2 = (2 * HSZ + 1) * (2 * HSZ + 1);
+  constexpr int NS = slots_for(HSZ, G);
+  const int C = kC > 0 ? kC : a.C;
   extern __shared__ float smem[];
-  const int k = 2 * hsz + 1, K2 = k * k;
-  const int T = blockDim.x;
-  const int WR = tile_h + 2 * hsz, WC = kTileW + 2 * hsz, WN = WR * WC;
-  const int Hp = H + 2 * hsz, Wp = W + 2 * hsz;
+  const int WC = tile_w + 2 * HSZ, WN = (tile_h + 2 * HSZ) * WC;
+  const int Hp = a.H + 2 * HSZ, Wp = a.W + 2 * HSZ;
   const int b = blockIdx.z;
-  const int y0 = blockIdx.y * tile_h, x0 = blockIdx.x * kTileW;
+  const int y0 = blockIdx.y * tile_h, x0 = blockIdx.x * tile_w;
 
-  float* w_s = smem;                                         // K2 * T weights
-  int* ku = reinterpret_cast<int*>(w_s + (size_t)K2 * T);    // WN keys of u
-  int* kv = ku + WN;                                         // WN keys of v
-  float* occ_s = reinterpret_cast<float*>(kv + WN);          // WN
-  float* g_s = occ_s + WN;                                   // C * WN
-
-  for (int e = threadIdx.x; e < WN; e += T) {
-    const int r = e / WC, c = e - (e / WC) * WC;
+  int* ku_s = reinterpret_cast<int*>(smem);        // WN keys of u
+  int* kv_s = ku_s + WN;                            // WN keys of v
+  float* occ_s = reinterpret_cast<float*>(kv_s + WN);  // WN
+  float* g_s = occ_s + WN;                          // C * WN
+  for (int e = threadIdx.x; e < WN; e += blockDim.x) {
+    const int r = e / WC, c = e - r * WC;
     const int gy = min(y0 + r, Hp - 1), gx = min(x0 + c, Wp - 1);
     const long gi = ((long)b * Hp + gy) * Wp + gx;
-    ku[e] = encode_f32(u[gi]);
-    kv[e] = encode_f32(v[gi]);
-    occ_s[e] = occ[gi];
+    ku_s[e] = encode_f32(a.u[gi]);
+    kv_s[e] = encode_f32(a.v[gi]);
+    occ_s[e] = a.occ[gi];
     for (int ch = 0; ch < C; ++ch) {
-      g_s[ch * WN + e] = guide[(((long)b * C + ch) * Hp + gy) * Wp + gx];
+      g_s[ch * WN + e] = a.guide[(((long)b * C + ch) * Hp + gy) * Wp + gx];
     }
   }
   __syncthreads();
 
-  const int ty = threadIdx.x / kTileW, tx = threadIdx.x - ty * kTileW;
+  const int lane = threadIdx.x & (G - 1);
+  const int px = threadIdx.x / G;
+  const int ty = px / tile_w, tx = px - ty * tile_w;
+  const int y = y0 + ty, x = x0 + tx;
+  if (y >= a.H || x >= a.W) return;  // the whole group leaves; no barrier follows
+  const unsigned mask = group_mask<G>();
   const int base = ty * WC + tx;  // window index of offset (0, 0)
-  const int center = base + hsz * WC + hsz;
+  const int center = base + HSZ * WC + HSZ;
 
-  // weights max(exp(-sum_c dc^2 / 2s^2) * occ, 1e-10), summed in offset order
+  // weights max(exp(-sum_c dc^2 / 2s^2) * occ, 1e-10); 0 past the window
+  float w[NS];
   float total = 0.0f;
-  int o = 0;
-  for (int dy = 0; dy < k; ++dy) {
-    for (int dx = 0; dx < k; ++dx, ++o) {
-      const int e = base + dy * WC + dx;
+#pragma unroll
+  for (int s = 0; s < NS; ++s) {
+    w[s] = 0.0f;
+    if (s * G + lane < K2) {
+      const int e = slot_index<HSZ, G>(s, lane, base, WC);
       float cdiff = 0.0f;
+#pragma unroll
       for (int ch = 0; ch < C; ++ch) {
         const float d = g_s[ch * WN + e] - g_s[ch * WN + center];
         cdiff = cdiff + d * d;
       }
-      const float w = fmaxf(expf(-cdiff * inv_2s2) * occ_s[e], 1e-10f);
-      w_s[o * T + threadIdx.x] = w;
-      total = total + w;
+      w[s] = fmaxf(expf(-cdiff * a.inv_2s2) * occ_s[e], 1e-10f);
     }
+    total = total + w[s];
   }
-  const float half = total * 0.5f;
+  const float half = group_sum<G>(total, mask) * 0.5f;
 
-  const float mu = bisect(ku, w_s, T, K2, k, WC, base, half);
-  const float mv = bisect(kv, w_s, T, K2, k, WC, base, half);
-  const int y = y0 + ty, x = x0 + tx;
-  if (y < H && x < W) {
-    const long oi = (((long)b * H + y) * W + x) * 2;
-    out[oi] = mu;
-    out[oi + 1] = mv;
+  // u, then v: the keys of one field at a time stay in registers
+  int lo, hi;
+  int key_u[NS];
+  load_keys<HSZ, G, NS>(ku_s, key_u, lo, hi, lane, base, WC, mask);
+  const int hi_u = bisect<G, NS>(key_u, w, lo, hi, half, mask);
+  int key_v[NS];
+  load_keys<HSZ, G, NS>(kv_s, key_v, lo, hi, lane, base, WC, mask);
+  const int hi_v = bisect<G, NS>(key_v, w, lo, hi, half, mask);
+  if (lane == 0) {
+    reinterpret_cast<float2*>(a.out)[((long)b * a.H + y) * a.W + x] =
+        make_float2(decode_i32(hi_u), decode_i32(hi_v));
   }
 }
 
-size_t smem_bytes(int threads, int hsz, int C) {
-  const int k = 2 * hsz + 1;
-  const int WN = (threads / kTileW + 2 * hsz) * (kTileW + 2 * hsz);
-  return sizeof(float) * ((size_t)k * k * threads + (size_t)(3 + C) * WN);
+size_t smem_bytes(int tile_w, int tile_h, int hsz, int C) {
+  return sizeof(float) * (size_t)(3 + C) * (tile_h + 2 * hsz) * (tile_w + 2 * hsz);
+}
+
+// The SM count, queried once: it only sizes the blocks, so a host with
+// cards of different sizes still computes the same result on each.
+int sm_count() {
+  static const int sms = [] {
+    int dev = 0, n = 0;
+    cudaGetDevice(&dev);
+    cudaDeviceGetAttribute(&n, cudaDevAttrMultiProcessorCount, dev);
+    return n > 0 ? n : 1;
+  }();
+  return sms;
+}
+
+template <int HSZ, int G, int kC>
+cudaError_t launch(const Args& a, cudaStream_t stream) {
+  const int sms = sm_count();
+  // 256 threads a block, halved while the grid has fewer than two blocks per
+  // SM (or the window does not fit), down to one warp
+  int threads = kThreads, tile_w = 0, tile_h = 0;
+  size_t smem = 0;
+  for (;; threads /= 2) {
+    const int pixels = threads / G;
+    tile_w = pixels >= 128 ? 16 : (pixels < 8 ? pixels : 8);
+    tile_h = pixels / tile_w;
+    smem = smem_bytes(tile_w, tile_h, HSZ, a.C);
+    const long blocks = (long)((a.W + tile_w - 1) / tile_w) * ((a.H + tile_h - 1) / tile_h) * a.B;
+    if (threads == kMinThreads || (blocks >= 2L * sms && smem <= (size_t)kMaxSmem)) break;
+  }
+  if (smem > (size_t)kMaxSmem) return cudaErrorInvalidValue;
+  auto kernel = wmedian_kernel<HSZ, G, kC>;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const dim3 grid((a.W + tile_w - 1) / tile_w, (a.H + tile_h - 1) / tile_h, a.B);
+  kernel<<<grid, threads, smem, stream>>>(a, tile_w, tile_h);
+  return cudaGetLastError();
+}
+
+template <int HSZ>
+cudaError_t dispatch(int hsz, const Args& a, cudaStream_t stream) {
+  if constexpr (HSZ > kMaxHsz) {
+    return cudaErrorInvalidValue;
+  } else {
+    constexpr int G = lanes_for(HSZ);
+    if (hsz == HSZ) return a.C == 3 ? launch<HSZ, G, 3>(a, stream) : launch<HSZ, G, 0>(a, stream);
+    return dispatch<HSZ + 1>(hsz, a, stream);
+  }
+}
+
+bool valid(int B, int C, int H, int W, int hsz) {
+  return hsz >= 0 && hsz <= kMaxHsz && C >= 1 && B >= 1 && H >= 1 && W >= 1;
 }
 
 }  // namespace
@@ -143,19 +312,7 @@ size_t smem_bytes(int threads, int hsz, int C) {
 extern "C" int wmedian_f32(const float* u, const float* v, const float* occ, const float* guide,
                            float* out, int B, int C, int H, int W, int hsz, float inv_2sigma2,
                            void* stream) {
-  if (hsz < 0 || hsz > kMaxHsz || C < 1 || B < 1 || H < 1 || W < 1) {
-    return (int)cudaErrorInvalidValue;
-  }
-  int threads = 128;
-  while (threads > 32 && smem_bytes(threads, hsz, C) > (size_t)kMaxSmem) threads /= 2;
-  const size_t smem = smem_bytes(threads, hsz, C);
-  if (smem > (size_t)kMaxSmem) return (int)cudaErrorInvalidValue;
-  cudaError_t err =
-      cudaFuncSetAttribute(wmedian_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
-  if (err != cudaSuccess) return (int)err;
-  const int tile_h = threads / kTileW;
-  const dim3 grid((W + kTileW - 1) / kTileW, (H + tile_h - 1) / tile_h, B);
-  wmedian_kernel<<<grid, threads, smem, static_cast<cudaStream_t>(stream)>>>(
-      u, v, occ, guide, out, C, H, W, hsz, inv_2sigma2, tile_h);
-  return (int)cudaGetLastError();
+  if (!valid(B, C, H, W, hsz)) return (int)cudaErrorInvalidValue;
+  const Args a{u, v, occ, guide, out, B, C, H, W, inv_2sigma2};
+  return (int)dispatch<0>(hsz, a, static_cast<cudaStream_t>(stream));
 }

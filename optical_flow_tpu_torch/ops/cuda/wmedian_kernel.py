@@ -5,13 +5,18 @@ Replaces the Pallas kernel ``_wmedian_kernel`` / ``wmedian_pallas``
 occlusion- and colour-weighted median over a (2h+1)^2 window, with weights
 ``max(exp(-sum_c dc^2 / (2 sigma^2)) * occ, 1e-10)``.
 
-On the H100 the kernel is bound by shared-memory traffic and issue, not by
-device memory: per pixel it computes 225 weights once, then runs 32
-bisection rounds per field over 225 (key, weight) pairs held in shared
-memory.  One thread per output pixel; a block of 128 pixels keeps its
-weights (115 KB at hsz 7) and its input windows in shared memory (dynamic
-opt-in), so device memory sees each input about once.  The plain twin
-sorts (H, W, 225) patch stacks instead, ~1 GB of temporaries at 388x584.
+On the H100 the function is bound by operations, not bytes: at 388x584,
+hsz 7, C 3 a pixel costs ~14 operations per weight and, for each field, a
+sort's K2 log2 K2 compares and K2 adds, ~0.024 ms at the float32 peak,
+against 2.3 us for its 7.6 MB.  The first design (one thread per
+pixel, its 225 weights in shared memory) fit 4 warps per SM and ran at ~40
+cycles per (round, sample) step.  The kernel now gives each pixel a group
+of lanes (8 at hsz 7) that hold their samples' keys and weights in
+registers, sums them per lane and then by a xor butterfly (bit-identical
+in every lane, so the group branches as one and results repeat), and stops
+each field's bisection exactly where 32 rounds would have ended.  A block
+stages only the window planes in shared memory.  The plain twin sorts
+(H, W, 225) patch stacks instead, ~1 GB of temporaries at 388x584.
 """
 from __future__ import annotations
 

@@ -88,6 +88,160 @@ def test_wmedian_no_guide_fallback_not_ported():
         denoise_color_weighted_medfilt2(t(np.zeros((8, 8, 2))), None, t(np.ones((8, 8))), 3, [5, 5], 7.0)
 
 
+INT32_MIN, INT32_MAX = np.int32(np.iinfo(np.int32).min), np.int32(np.iinfo(np.int32).max)
+
+
+def _lanes_for(hsz):
+    """Lanes per output pixel, as ``lanes_for`` in csrc/wmedian.cu: the fewest
+    (a power of two) that leave each lane at most 29 window samples."""
+    g = 1
+    while -(-((2 * hsz + 1) ** 2) // g) > 29:
+        g *= 2
+    return g
+
+
+def _encode_keys(x):
+    """float32 -> order-isomorphic int32 key, as ``encode_f32`` in the kernel."""
+    b = np.ascontiguousarray(x, np.float32).view(np.int32)
+    return np.where(b < 0, np.invert(b) ^ INT32_MIN, b)
+
+
+def _decode_keys(k):
+    b = np.where(k < 0, np.invert(k ^ INT32_MIN), k).astype(np.int32)
+    return b.view(np.float32)
+
+
+def _group_sum(part):
+    """Xor butterfly over the G lanes of (N, G) float32 partial sums; every lane
+    adds the same two values at each step, so all lanes end bit-identical."""
+    G = part.shape[1]
+    m = 1
+    while m < G:
+        part = part + part[:, np.arange(G) ^ m]
+        m *= 2
+    assert (part == part[:, :1]).all()
+    return part[:, 0]
+
+
+def wmedian_select_model(values, weights, lanes, early_exit=True):
+    """Numpy model of the kernel's selection for (N, K2) float32 windows.
+
+    Lane l of a pixel's group holds the samples o = s * lanes + l (slots past
+    the window: key INT32_MAX, weight 0).  Sums are per lane in slot order,
+    then the butterfly.  lo = min - 1, hi = max; bisection while hi - lo > 1,
+    at most 32 rounds.  Returns (medians, rounds per window).
+    """
+    N, K2 = values.shape
+    NS = -(-K2 // lanes)
+    pad = NS * lanes - K2
+    keys = np.concatenate([_encode_keys(values), np.full((N, pad), INT32_MAX)], 1).reshape(N, NS, lanes)
+    w = np.concatenate([weights.astype(np.float32), np.zeros((N, pad), np.float32)], 1).reshape(N, NS, lanes)
+    valid = (np.arange(NS * lanes) < K2).reshape(NS, lanes)
+
+    def S(take):  # (N, NS, lanes) bool -> (N,) float32
+        acc = np.zeros((N, lanes), np.float32)
+        for s in range(NS):
+            acc = acc + np.where(take[:, s], w[:, s], np.float32(0.0))
+        return _group_sum(acc)
+
+    half = S(np.ones_like(valid, shape=keys.shape)) * np.float32(0.5)
+    lo = np.where(valid, keys, INT32_MAX).min(axis=(1, 2)) - np.int32(1)
+    hi = np.where(valid, keys, INT32_MIN).max(axis=(1, 2))
+    rounds = np.zeros(N, np.int64)
+    for _ in range(32):
+        active = hi.astype(np.int64) - lo > 1 if early_exit else np.ones(N, bool)
+        if not active.any():
+            break
+        mid = (lo & hi) + ((lo ^ hi) >> 1)
+        ge = S(keys <= mid[:, None, None]) >= half
+        hi = np.where(active & ge, mid, hi)
+        lo = np.where(active & ~ge, mid, lo)
+        rounds += active
+    return _decode_keys(hi), rounds
+
+
+def _hard_windows(kind, rng, N, K2):
+    """(values, weights) of N windows of K2 samples that stress the selection.
+
+    Weights are multiples of 1/64 (below 2^24 / 64 in total) unless the case
+    says otherwise, so every partial sum is exact in float32 in any order and
+    the model must equal the sort twin exactly."""
+    w = rng.integers(1, 65, (N, K2)) / 64.0
+    if kind == "all_equal":
+        v = np.repeat(rng.standard_normal((N, 1)), K2, 1)
+    elif kind == "signed_zeros":
+        v = rng.choice(np.array([-0.0, 0.0, -1.5, 2.0]), (N, K2), p=[0.4, 0.4, 0.1, 0.1])
+    elif kind == "straddle_zero":
+        v = rng.standard_normal((N, K2)) * 10.0 ** rng.integers(-30, 3, (N, 1))
+    elif kind == "ties_unequal_weights":
+        v = np.round(rng.standard_normal((N, K2)) * 2) / 4
+        w = w * rng.choice([1.0, 16.0], (N, K2))
+    elif kind == "dominant_weight":
+        v = rng.standard_normal((N, K2)) * 3
+        w = np.full((N, K2), 1e-10)
+        w[np.arange(N), rng.integers(0, K2, N)] = rng.uniform(0.1, 1.0, N)
+    elif kind == "half_split":  # two blocks of equal weight: S(m) lands exactly on total/2
+        v = rng.standard_normal((N, K2))
+        w = np.ones((N, K2)) / 2 ** rng.integers(0, 6, (N, 1))
+    else:
+        raise ValueError(kind)
+    return v.astype(np.float32), w.astype(np.float32)
+
+
+WINDOW_KINDS = ["all_equal", "signed_zeros", "straddle_zero", "ties_unequal_weights", "dominant_weight", "half_split"]
+
+
+@pytest.mark.parametrize("hsz", [0, 1, 7, 12])
+@pytest.mark.parametrize("kind", WINDOW_KINDS)
+def test_wmedian_kernel_selection_model_matches_sort_twin(rng, kind, hsz):
+    """The kernel's lane-group selection (register slots, butterfly sums, exact
+    early exit) picks the sort twin's sample on hard windows."""
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import _weighted_median_lastaxis
+
+    K2 = (2 * hsz + 1) ** 2
+    v, w = _hard_windows(kind, rng, 48, K2)
+    got, rounds = wmedian_select_model(v, w, _lanes_for(hsz))
+    want = _weighted_median_lastaxis(torch.from_numpy(v), torch.from_numpy(w)).numpy()
+    np.testing.assert_array_equal(got, want)  # -0.0 == 0.0: the twin's zero may carry the other sign
+    full, _ = wmedian_select_model(v, w, _lanes_for(hsz), early_exit=False)
+    assert got.tobytes() == full.tobytes()  # the early exit is the 32-round result bit for bit
+    assert rounds.max() <= 32
+    if kind == "all_equal":
+        assert (rounds == 0).all()
+
+
+@pytest.mark.parametrize("hsz", [1, 7, 12])
+def test_wmedian_kernel_selection_model_float_weights(rng, hsz):
+    """With the filter's own float weights, the sums' order may move the total/2
+    crossing by one sample: every differing median is the twin's neighbour in
+    sorted order, as chip_smoke.py requires of the kernel."""
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import _weighted_median_lastaxis
+
+    K2 = (2 * hsz + 1) ** 2
+    v = (3 * rng.standard_normal((256, K2))).astype(np.float32)
+    cdiff = (rng.uniform(0, 24, (256, K2, 3)) ** 2).sum(-1).astype(np.float32)
+    w = np.maximum(np.exp(-cdiff / np.float32(98.0)) * rng.uniform(0.1, 1, (256, K2)).astype(np.float32), 1e-10)
+    w = w.astype(np.float32)
+    got, rounds = wmedian_select_model(v, w, _lanes_for(hsz))
+    want = _weighted_median_lastaxis(torch.from_numpy(v), torch.from_numpy(w)).numpy()
+    for i in np.flatnonzero(got != want):
+        lo, hi = sorted((got[i], want[i]))
+        assert not ((v[i] > lo) & (v[i] < hi)).any()
+    assert (got == want).mean() >= 0.99
+    assert 0 < rounds.min() and rounds.max() <= 32
+
+
+@pytest.mark.parametrize("lanes", [4, 8, 16])
+def test_wmedian_kernel_selection_model_lane_counts(rng, lanes):
+    """At hsz 7 every lane count timed on the card (4, 8, 16; the kernel uses
+    8) selects alike on exact-sum windows."""
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import _weighted_median_lastaxis
+
+    v, w = _hard_windows("ties_unequal_weights", rng, 64, 225)
+    got, _ = wmedian_select_model(v, w, lanes)
+    np.testing.assert_array_equal(got, _weighted_median_lastaxis(torch.from_numpy(v), torch.from_numpy(w)).numpy())
+
+
 def _random_system(rng, H, W, lib, dtype):
     """The seeded random SPD system of the Pallas CG test, as numpy -> ``lib``."""
 
@@ -201,8 +355,13 @@ def test_wrappers_take_cpu_tensors_to_the_twin_and_refuse_other_devices(rng):
 # ------------------------------------------------------------------ on the card
 
 
+# beside the Pallas shapes: the window half-sizes at the ends of the kernel's
+# range (1 and 32 lanes a pixel) and a shape that is no multiple of any tile
+WMEDIAN_KERNEL_CASES = WMEDIAN_CASES + [((27, 41), 0, 1, False), ((29, 43), 12, 3, False), ((37, 53), 7, 3, False)]
+
+
 @pytest.mark.cuda
-@pytest.mark.parametrize("shape,hsz,C,ties", WMEDIAN_CASES)
+@pytest.mark.parametrize("shape,hsz,C,ties", WMEDIAN_KERNEL_CASES)
 def test_wmedian_kernel_bit_exact(cuda_device, rng, shape, hsz, C, ties):
     from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
     from optical_flow_tpu_torch.ops.filters import pad2d
