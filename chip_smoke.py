@@ -11,25 +11,32 @@ Phases, each printing its results; any failed check exits non-zero:
 2. each kernel against its plain PyTorch twin on the card at main-path
    shapes, with both times (CUDA events); for the weighted median also
    window half-sizes 0, 1 and 12, the coarsest main-path level and a
-   repeat run (determinism);
+   repeat run (determinism); for PCG and ROF both paths (resident at the
+   main path's shapes, streaming above the resident limit), repeat runs,
+   and the streaming kernels (the previous design, unchanged) timed in
+   turns with the resident ones on the same input;
 3. the main path, ``estimate_flow(rgb1, rgb2, "classic+nl-fast",
    {"display": False, "solver": "pcg"}, device="cuda")`` on RubberWhale
    584x388: finite output, AAE / AEPE against the ground truth within the
-   classic+nl-fast gate, the kernels' launch counts for one frame, and the
-   per-frame latency;
+   classic+nl-fast gate, the kernels' launch counts for one frame (by
+   path), and the per-frame latency;
 4. the weighted median on the inputs the main path gave it (recorded in a
    warm-up frame): kernel against twin at the finest level, one call's
    time at each level shape, the 21 calls' sum, and each call's bound;
-5. one frame under torch.profiler: device busy time, idle share and the
-   device time of each kernel.
+5. the 21 PCG systems of that warm-up frame: each against the twin (max
+   |dx|, residual, iterations), one solve's time, microseconds per
+   iteration and the bound at each level shape, and the 21 solves' sum;
+6. one frame under torch.profiler: device busy time, idle share, the
+   device time of each kernel and the ROF kernel's device launches.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
 JSON object lists each kernel with its time, its plain twin's time and
 its bound (the larger of bytes over 3.35 TB/s and operations over the
 67 TFLOP/s float32 peak of an H100 SXM), all from phase 2.  The weighted
-median's entry adds phase 4's numbers under ``main_path_*`` and
-``frame_sum_*`` (the 21 calls summed).  Without a CUDA device, or
+median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
+``frame_sum_*`` (the 21 calls summed); PCG's and ROF's add the previous
+(streaming) kernel's time on phase 2's input as ``streaming_ms``.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -101,10 +108,29 @@ def phase_setup(torch):
     t0 = time.time()
     build.load_library()
     print(f"kernel build + load: {time.time() - t0:.1f} s (key {build.build_key()})")
-    for line in build.build_log.splitlines():
-        if "registers" in line or "spill" in line or "Compiling entry" in line:
-            print(f"  ptxas: {line.strip()}")
+    for name, regs, spill in ptxas_report(build.build_log):
+        print(f"  ptxas: {name}: {regs} registers, {spill} bytes spill stores")
     return card
+
+
+def ptxas_report(log):
+    """[(kernel, registers, spill-store bytes)] from nvcc's -Xptxas -v log."""
+    import re
+
+    out, name, spill = [], "?", 0
+    for line in log.splitlines():
+        m = re.search(r"Compiling entry function '(\w+)'", line)
+        if m:
+            rest = re.sub(r"^_ZN\d+_GLOBAL__N__\w+?_cu_[0-9a-f]{8}\d+", "", m.group(1))
+            args = re.findall(r"Li(\d+)E", rest)
+            name = re.match(r"[a-z_]+", rest).group(0) + (f"<{','.join(args)}>" if args else "")
+        m = re.search(r"(\d+) bytes spill stores", line)
+        if m:
+            spill = int(m.group(1))
+        m = re.search(r"Used (\d+) registers", line)
+        if m:
+            out.append((name, int(m.group(1)), spill))
+    return out
 
 
 def _pad(torch, x, hsz, dev):
@@ -290,11 +316,54 @@ def _irls_system(torch, dev, rgb1, rgb2, tu, tv):
     return blend_systems(0.0, sys_q, sys_r)
 
 
-def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
-    from optical_flow_tpu_torch.ops.cuda import cg_kernel
-    from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply, system_apply_split, weighted_laplacian_diag
+def cg_twin(torch, sysm, rtol, maxiter, sums=None):
+    """The plain twin on ``sysm`` in its dtype: ((H, W, 2) solution, iterations).
 
-    H, W = 388, 584
+    ``sums`` (a dtype) takes its dot products in that type, rounded back to
+    the state's: with float64 it is the kernels' own summation type."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.stencil import system_apply_split, weighted_laplacian_diag
+
+    du = sysm.a11 + weighted_laplacian_diag(sysm.wu_h, sysm.wu_v)
+    dv = sysm.a22 + weighted_laplacian_diag(sysm.wv_h, sysm.wv_v)
+    dot = cg_kernel._dot2
+    if sums is not None:
+        def dot(au, av, bu, bv):
+            return (au.to(sums) * bu.to(sums) + av.to(sums) * bv.to(sums)).sum().to(au.dtype)
+    saved, cg_kernel._dot2 = cg_kernel._dot2, dot
+    try:
+        xu, xv, it_t = cg_kernel.pcg_solve_split(
+            lambda a, b: system_apply_split(sysm, a, b),
+            sysm.b_u, sysm.b_v, du, dv, rtol, maxiter, a12=sysm.a12, return_iters=True)
+    finally:
+        cg_kernel._dot2 = saved
+    return torch.stack([xu, xv], -1), it_t
+
+
+def cg_compare(torch, sysm, rtol, maxiter, x_k, it_k):
+    """The kernel's solution against the plain twin's on the same system:
+    (max |dx|, its limit 1e-5 x scale, relative residual in float64,
+    iterations of the twin)."""
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply
+
+    x_t, it_t = cg_twin(torch, sysm, rtol, maxiter)
+    scale = max(float(x_t.abs().max()), 1.0)
+    err = float((x_k - x_t).abs().max())
+    b = torch.stack([sysm.b_u, sysm.b_v], -1).double()
+    res = float(torch.linalg.norm(system_apply(FlowSystem(*[f.double() for f in sysm]), x_k.double()) - b)
+                / torch.linalg.norm(b))
+    return err, 1e-5 * scale, res, it_t
+
+
+def cg_bound(H, W, iters):
+    """Per pixel: setup ~33 operations (preconditioner, z, two dots), then per
+    iteration ~58 (A p 28, p.Ap 4, x 4, r 4, z 6, r.z 4, r.r 4, p 4); bytes:
+    the 9 system planes in, the (H, W, 2) solution out."""
+    return bound(H * W * (33 + 58 * iters), 4 * 11 * H * W)
+
+
+def _random_flow_system(torch, dev, rng, H, W):
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem
 
     def u(*s):
         return rng.uniform(0.1, 1.0, s).astype(np.float32)
@@ -305,91 +374,133 @@ def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
     w[1][-1, :] = 0
     w[3][-1, :] = 0
     fields = [u(H, W) + 1.0, 0.5 * u(H, W), u(H, W) + 1.0, *w, u(H, W), u(H, W)]
-    random_sys = FlowSystem(*[torch.as_tensor(f, device=dev) for f in fields])
+    return FlowSystem(*[torch.as_tensor(f, device=dev) for f in fields])
+
+
+def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem
+
+    limits = device_limits(dev)
+    random_sys = _random_flow_system(torch, dev, rng, 388, 584)
     irls_sys = FlowSystem(*[f.contiguous() for f in _irls_system(torch, dev, rgb1, rgb2, tu, tv)])
+    # above the resident limit: the streaming kernel (the previous design)
+    big_sys = _random_flow_system(torch, dev, rng, 1200, 1600)
     result = None
-    for name, sysm, rtol, maxiter in (("random", random_sys, 1e-6, 1000), ("irls", irls_sys, 1e-3, 200)):
+    for name, sysm, rtol, maxiter, path in (("random", random_sys, 1e-6, 1000, "resident"),
+                                           ("irls", irls_sys, 1e-3, 200, "resident"),
+                                           ("random", big_sys, 1e-6, 100, "streaming")):
+        H, W = sysm.a11.shape
+        plan = cg_kernel.cg_plan(H, W, *limits)
+        check(plan.path == path, f"cg {H}x{W}: path {plan.path}, expected {path}")
         x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
-        it_k = cg_kernel.iteration_counts(x_k.device)[0]
-        du = sysm.a11 + weighted_laplacian_diag(sysm.wu_h, sysm.wu_v)
-        dv = sysm.a22 + weighted_laplacian_diag(sysm.wv_h, sysm.wv_v)
-        xu, xv, it_t = cg_kernel.pcg_solve_split(
-            lambda a, b: system_apply_split(sysm, a, b),
-            sysm.b_u, sysm.b_v, du, dv, rtol, maxiter, a12=sysm.a12, return_iters=True)
-        x_t = torch.stack([xu, xv], -1)
+        it_k = cg_kernel.iteration_counts(dev)[0]
+        again = cg_kernel.cg_solve(sysm, rtol, maxiter)
+        err, limit, res, it_t = cg_compare(torch, sysm, rtol, maxiter, x_k, it_k)
         torch.cuda.synchronize()
-        scale = max(float(x_t.abs().max()), 1.0)
-        err = float((x_k - x_t).abs().max())
-        b = torch.stack([sysm.b_u, sysm.b_v], -1).double()
-        res = float(torch.linalg.norm(system_apply(FlowSystem(*[f.double() for f in sysm]), x_k.double()) - b) / torch.linalg.norm(b))
-        print(f"cg {name} 388x584 rtol {rtol:g}: iterations kernel {it_k} / plain {it_t}, "
-              f"max|dx| {err:.3e} (limit {1e-5 * scale:.3e}), relative residual {res:.3e} (limit {10 * rtol:g})")
-        check(err <= 1e-5 * scale, f"cg {name}: kernel differs from its twin")
-        check(res <= 10 * rtol, f"cg {name}: residual above 10 x rtol")
+        same = torch.equal(again, x_k)
+        print(f"cg {name} {H}x{W} rtol {rtol:g} ({plan.path}, {plan.blocks} blocks, {plan.ppt} px a thread): "
+              f"iterations kernel {it_k} / plain {it_t}, max|dx| {err:.3e} (limit {limit:.3e}), "
+              f"relative residual {res:.3e} (limit {10 * rtol:g}), run twice: torch.equal {same}")
+        check(err <= limit, f"cg {name} {H}x{W}: kernel differs from its twin")
+        check(res <= 10 * rtol, f"cg {name} {H}x{W}: residual above 10 x rtol")
+        check(same, f"cg {name} {H}x{W}: two runs differ")
         if name == "irls":
-            ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 10)
+            planes = list(sysm)
+            streaming = cg_kernel.CgPlan("streaming")
+            # the previous kernel and the resident one in turns: s, r, r, s
+            t = [cuda_ms(torch, lambda p=p: cg_kernel.launch(planes, rtol, maxiter, p), 10)
+                 for p in (streaming, plan, plan, streaming)]
+            ms, streaming_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             plain_ms = cuda_ms(torch, lambda: cg_kernel.cg_solve_plain(sysm, rtol, maxiter), 3)
-            # per pixel: setup ~33 operations (preconditioner, z, two dots), then
-            # per iteration ~58 (A p 28, p.Ap 4, x 4, r 4, z 6, r.z 4, r.r 4, p 4);
-            # bytes: the 9 system planes in, the (H, W, 2) solution out
-            b = bound(H * W * (33 + 58 * it_k), 4 * 11 * H * W)
-            print(f"cg irls 388x584 rtol 1e-3 ({it_k} iterations): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+            b = cg_bound(H, W, it_k)
+            print(f"cg irls {H}x{W} rtol 1e-3 ({it_k} iterations): resident {t[1]:.3f} / {t[2]:.3f} ms "
+                  f"({1e3 * ms / it_k:.2f} us an iteration), streaming (previous design) {t[0]:.3f} / {t[3]:.3f} ms "
+                  f"({1e3 * streaming_ms / it_k:.2f} us), plain {plain_ms:.3f} ms, "
                   f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
-            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+            check(ms < streaming_ms, "cg: the resident kernel is not faster than the streaming one at 388x584")
+            result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "streaming_ms": streaming_ms}
     return result
 
 
 def check_rof(torch, dev, card, rgb1, rgb2):
+    from optical_flow_tpu_torch.ops.cuda import rof_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
     from optical_flow_tpu_torch.ops.cuda.rof_kernel import rof_structure, rof_structure_2d
     from optical_flow_tpu_torch.utils.compat import preprocess_color_pair, scale_image
 
     f32 = torch.float32
+    limits = device_limits(dev)
     gray, _ = preprocess_color_pair(torch.as_tensor(rgb1, dtype=f32, device=dev), torch.as_tensor(rgb2, dtype=f32, device=dev))
     im = scale_image(gray, -1, 1).permute(2, 0, 1).contiguous()  # (2, 388, 584), the texture stage's input
-    out = rof_structure(im, 1.0 / 8, 100)
-    ref = rof_structure_2d(im, 1.0 / 8, 100)
-    torch.cuda.synchronize()
-    err = float((out - ref).abs().max())
-    print(f"rof 2x388x584, 100 iterations: max|d| {err:.3e} (limit 1e-6)")
-    check(err <= 1e-6, "ROF kernel differs from its twin")
-    ms = cuda_ms(torch, lambda: rof_structure(im, 1.0 / 8, 100), 10)
+    rng = np.random.default_rng(SEED + 2)
+    cases = [("main-path input", im, "resident", 0.0),
+             ("ragged bands", torch.as_tensor(rng.uniform(-1, 1, (2, 33, 47)), dtype=f32, device=dev), "resident", 0.0),
+             ("ragged bands", torch.as_tensor(rng.uniform(-1, 1, (2, 100, 47)), dtype=f32, device=dev), "resident", 0.0),
+             ("above the resident limit", torch.as_tensor(rng.uniform(-1, 1, (2, 1080, 1920)), dtype=f32, device=dev),
+              "streaming", 1e-6)]
+    for name, x, path, limit in cases:
+        plan = rof_kernel.rof_plan(*x.shape, *limits)
+        check(plan.path == path, f"rof {tuple(x.shape)}: path {plan.path}, expected {path}")
+        out = rof_structure(x, 1.0 / 8, 100)
+        ref = rof_structure_2d(x, 1.0 / 8, 100)
+        torch.cuda.synchronize()
+        err = float((out - ref).abs().max())
+        print(f"rof {'x'.join(map(str, x.shape))} {name}, 100 iterations ({plan.path}): max|d| {err:.3e} (limit {limit:g})")
+        check(err <= limit, f"ROF kernel differs from its twin at {tuple(x.shape)}")
+        if x is im:
+            result_err = err
+    plan = rof_kernel.rof_plan(*im.shape, *limits)
+    streaming = rof_kernel.RofPlan("streaming")
+    # the previous kernel and the resident one in turns: s, r, r, s
+    t = [cuda_ms(torch, lambda p=p: rof_kernel.launch(im, 1.0 / 8, 100, p), 10) for p in (streaming, plan, plan, streaming)]
+    ms, streaming_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     plain_ms = cuda_ms(torch, lambda: rof_structure_2d(im, 1.0 / 8, 100), 3)
     # per pixel and iteration ~28 operations (the primal at three points 15,
     # the gradient 2, the dual step 4, the norm 5, the division 2), then 5 for
     # the final primal; bytes: the image in, the structure out
     n = im.numel()
     b = bound(n * (28 * 100 + 5), 8 * n)
-    print(f"rof 2x388x584: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
-          f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
-    return {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b}
+    print(f"rof 2x388x584: resident {t[1]:.3f} / {t[2]:.3f} ms, streaming (previous design) {t[0]:.3f} / {t[3]:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    return {"max_abs_err": result_err, "ms": ms, "plain_ms": plain_ms, **b, "streaming_ms": streaming_ms}
 
 
 def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
     from optical_flow_tpu_torch import estimate_flow, flow_angular_error
     from optical_flow_tpu_torch.ops import wmedian as wmedian_op
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
+    from optical_flow_tpu_torch.solvers import cg as cg_solvers
 
-    # warm-up (allocator, cuBLAS), keeping a copy of each weighted median's inputs
-    recorded = []
-    kernel_call = wmedian_op.wmedian
+    # warm-up (allocator, cuBLAS), keeping a copy of each weighted median's
+    # and each PCG solve's inputs
+    recorded, recorded_cg = [], []
+    kernel_call, cg_call = wmedian_op.wmedian, cg_solvers.cg_solve
 
     def recording(*args):
         recorded.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
         return kernel_call(*args)
 
-    wmedian_op.wmedian = recording
+    def recording_cg(sysm, rtol, maxiter):
+        recorded_cg.append((type(sysm)(*[f.clone() for f in sysm]), rtol, maxiter))
+        return cg_call(sysm, rtol, maxiter)
+
+    wmedian_op.wmedian, cg_solvers.cg_solve = recording, recording_cg
     try:
         estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
     finally:
-        wmedian_op.wmedian = kernel_call
+        wmedian_op.wmedian, cg_solvers.cg_solve = kernel_call, cg_call
     torch.cuda.synchronize()
 
     wmedian_kernel.launches = 0
-    rof_kernel.launches = 0
+    rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_streaming = 0
     cg_kernel.reset_stats()
     uv = estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
     torch.cuda.synchronize()
     launches = {"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches}
+    by_path = {"cg resident": cg_kernel.launches_resident, "cg streaming": cg_kernel.launches_streaming,
+               "rof resident": rof_kernel.launches_resident, "rof streaming": rof_kernel.launches_streaming}
     cg_iters = cg_kernel.iteration_counts(uv.device)[1]
 
     uv_np = uv.cpu().numpy()
@@ -398,9 +509,10 @@ def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
     aae, _, aepe = flow_angular_error(tu, tv, uv_np[..., 0], uv_np[..., 1])
     print(f"main path RubberWhale 584x388 classic+nl-fast: AAE {aae:.4f} deg, AEPE {aepe:.5f} px "
           f"(JAX float32: {TARGET_AAE} / {TARGET_AEPE})")
-    print(f"launches in one frame: {launches}, CG iterations {cg_iters}")
+    print(f"launches in one frame: {launches}, by path {by_path}, CG iterations {cg_iters}")
     check(abs(aae - TARGET_AAE) <= GATE_AAE and abs(aepe - TARGET_AEPE) <= GATE_AEPE, "accuracy outside the classic+nl-fast gate")
-    check(launches["wmedian"] == 21 and launches["cg"] == 21 and launches["rof"] >= 1, f"unexpected launch counts {launches}")
+    check(launches["wmedian"] == 21 and launches["cg"] == 21 and launches["rof"] == 1, f"unexpected launch counts {launches}")
+    check(by_path["cg resident"] == 21 and by_path["rof resident"] == 1, f"a main-path solve left the resident path: {by_path}")
 
     ev_ms, host_ms = [], []
     for _ in range(5):
@@ -417,7 +529,7 @@ def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
     frame_ms = statistics.median(ev_ms)
     print(f"per-frame latency, median of 5 warm runs: {frame_ms:.2f} ms (CUDA events), "
           f"{statistics.median(host_ms):.2f} ms (host clock)  [{card}]")
-    return launches, recorded, frame_ms
+    return launches, recorded, recorded_cg, frame_ms
 
 
 def phase_wmedian_levels(torch, card, recorded):
@@ -462,6 +574,74 @@ def phase_wmedian_levels(torch, card, recorded):
             "frame_sum_ms": frame_ms, "frame_sum_bound_ms": frame_bound}
 
 
+def phase_cg_levels(torch, dev, card, recorded):
+    """The PCG kernel on the 21 systems of a main-path frame: each against the
+    twin, one solve's time at each level shape, the 21 solves' sum."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
+
+    check(len(recorded) == 21, f"recorded {len(recorded)} PCG solves in a frame, expected 21")
+    limits = device_limits(dev)
+    levels, frame_ms, frame_bound, finest = {}, 0.0, 0.0, None
+    for k, (sysm, rtol, maxiter) in enumerate(recorded):
+        H, W = sysm.a11.shape
+        plan = cg_kernel.cg_plan(H, W, *limits)
+        x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
+        it_k = cg_kernel.iteration_counts(dev)[0]
+        again = cg_kernel.cg_solve(sysm, rtol, maxiter)
+        err, limit, res, it_t = cg_compare(torch, sysm, rtol, maxiter, x_k, it_k)
+        # the previous (streaming) kernel on the same system, for comparison
+        x_s = cg_kernel.launch([f.contiguous() for f in sysm], rtol, maxiter, cg_kernel.CgPlan("streaming"))
+        it_s = cg_kernel.iteration_counts(dev)[0]
+        err_s = cg_compare(torch, sysm, rtol, maxiter, x_s, it_s)[0]
+        # the twin sums in float32, the kernels in double: the twin with
+        # double sums is the kernels' own recurrence; the float64 twin shows
+        # how far each lands from exact arithmetic
+        x_t = cg_twin(torch, sysm, rtol, maxiter)[0]
+        x_d, it_d = cg_twin(torch, sysm, rtol, maxiter, sums=torch.float64)
+        x64 = cg_twin(torch, type(sysm)(*[f.double() for f in sysm]), rtol, maxiter)[0]
+        err_d = float((x_k - x_d).abs().max())
+        err64, err64_t = (float((x.double() - x64).abs().max()) for x in (x_k, x_t))
+        torch.cuda.synchronize()
+        print(f"cg main-path system {k + 1} {H}x{W}: iterations kernel {it_k} / plain {it_t} / plain, double sums "
+              f"{it_d} / streaming {it_s}; max|dx| / limit against the plain twin {err / limit:.3f} (streaming "
+              f"{err_s / limit:.3f}), against it with double sums {err_d / limit:.3f}; from the float64 twin: kernel "
+              f"{err64 / limit:.3f}, plain twin {err64_t / limit:.3f}; residual / rtol {res / rtol:.3f}")
+        check(min(err, err_d) <= limit and res <= 10 * rtol and torch.equal(again, x_k),
+              f"cg main-path system {H}x{W}: max|dx| {err:.3e}, {err_d:.3e} with double sums (limit {limit:.3e}); "
+              f"residual {res:.3e}")
+        ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 5)
+        b = cg_bound(H, W, it_k)["bound_ms"]
+        frame_ms += ms
+        frame_bound += b
+        lv = levels.setdefault((H, W), {"plan": plan, "solves": 0, "iters": 0, "ms": 0.0, "bound": 0.0,
+                                        "err": 0.0, "res": 0.0, "it_t": 0})
+        lv["solves"] += 1
+        lv["iters"] += it_k
+        lv["it_t"] += it_t
+        lv["ms"] += ms
+        lv["bound"] += b
+        lv["err"] = max(lv["err"], err / limit)
+        lv["res"] = max(lv["res"], res / rtol)
+        if finest is None or H * W > finest[0].a11.numel() or (H * W == finest[0].a11.numel() and it_k > finest[3]):
+            finest = (sysm, rtol, maxiter, it_k, err)
+    for (H, W), lv in levels.items():
+        print(f"cg level {H}x{W} ({lv['plan'].path}, {lv['plan'].blocks} blocks, {lv['plan'].ppt} px a thread): "
+              f"{lv['solves']} solves, iterations kernel {lv['iters']} / plain {lv['it_t']}, {lv['ms']:.4f} ms "
+              f"({lv['ms'] / lv['solves']:.4f} ms a solve, {1e3 * lv['ms'] / max(lv['iters'], 1):.2f} us an iteration), "
+              f"bound {lv['bound']:.4f} ms; worst max|dx| / limit {lv['err']:.3f}, residual / rtol {lv['res']:.3f}  [{card}]")
+    print(f"cg, the frame's 21 solves one by one: {frame_ms:.3f} ms, bound {frame_bound:.4f} ms  [{card}]")
+    sysm, rtol, maxiter, it_k, err = finest
+    H, W = sysm.a11.shape
+    ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 10)
+    plain_ms = cuda_ms(torch, lambda: cg_kernel.cg_solve_plain(sysm, rtol, maxiter), 3)
+    b = cg_bound(H, W, it_k)
+    print(f"cg main-path system {H}x{W} ({it_k} iterations): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
+          f"bound {b['bound_ms']:.4f} ms  [{card}]")
+    return {"main_path_ms": ms, "main_path_plain_ms": plain_ms, "main_path_bound_ms": b["bound_ms"],
+            "main_path_max_abs_err": err, "frame_sum_ms": frame_ms, "frame_sum_bound_ms": frame_bound}
+
+
 def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms):
     """One warm frame under torch.profiler: device busy time (the union of the
     device intervals), idle share, and device time by kernel."""
@@ -488,7 +668,7 @@ def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms):
             end = b
     split = {"wmedian": 0.0, "cg": 0.0, "rof": 0.0, "other": 0.0}
     for e in events:
-        key = next((k for k, tag in (("wmedian", "wmedian_kernel"), ("cg", "cg_kernel"), ("rof", "rof_"))
+        key = next((k for k, tag in (("wmedian", "wmedian_kernel"), ("cg", "cg_"), ("rof", "rof_"))
                     if tag in e.name), "other")
         split[key] += e.time_range.end - e.time_range.start
     busy_ms = busy_us / 1e3
@@ -496,6 +676,10 @@ def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms):
           f"idle share {1 - busy_ms / wall_ms:.3f} of the profiled frame and {1 - busy_ms / frame_ms:.3f} "
           f"of the unprofiled {frame_ms:.2f} ms frame  [{card}]")
     print("profiled frame, device ms by kernel: " + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in split.items()))
+    rof_launches = sum("rof_" in e.name for e in events)
+    print(f"profiled frame: {rof_launches} ROF device launch(es), "
+          f"{sum('cg_' in e.name for e in events)} PCG device launches")
+    check(rof_launches == 1, f"ROF made {rof_launches} device launches in the frame, expected 1")
 
 
 def main():
@@ -523,9 +707,11 @@ def main():
             "cg": check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv),
             "rof": check_rof(torch, dev, card, rgb1, rgb2),
         }
-        launches, recorded, frame_ms = phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv)
+        launches, recorded, recorded_cg, frame_ms = phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv)
         results["wmedian"].update(phase_wmedian_levels(torch, card, recorded))
         del recorded
+        results["cg"].update(phase_cg_levels(torch, dev, card, recorded_cg))
+        del recorded_cg
         phase_profile(torch, dev, card, rgb1, rgb2, frame_ms)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)

@@ -1,23 +1,35 @@
 // Whole block-Jacobi PCG solve of the coupled 2-field 5-point flow system,
-// in one cooperative launch.  Replaces the Pallas kernel _cg_kernel /
-// cg_solve_pallas (optical_flow_tpu/ops/pallas/cg_kernel.py).
+// in one launch.  Replaces the Pallas kernel _cg_kernel / cg_solve_pallas
+// (optical_flow_tpu/ops/pallas/cg_kernel.py), whose idea is residency: every
+// plane stays in fast memory for the whole solve.
 //
-// Bound on the H100: memory traffic and grid-wide synchronisation.  An
-// iteration does ~60 flops per pixel against ~100 bytes of plane traffic;
-// at the finest main-path level (388x584) the ~20 planes (18 MB) stay in
-// the 50 MB L2, so an iteration costs a few L2 passes plus three grid
-// barriers.  The design keeps the whole loop, its two dot products and the
-// stopping test on the device: one launch per solve instead of ~10 launches
-// and a host round trip per iteration.  Blocks walk the pixels in a
-// grid-stride loop; each dot product is reduced per block, written to
-// scratch, and after the barrier every block reduces the block partials in
-// the same fixed order (no float atomics), so every block takes the same
-// branch and the result repeats run to run.
+// Bound on the H100: latency and synchronisation, not arithmetic.  An
+// iteration does ~60 flops per pixel (~0.2 us at 388x584 at the float32
+// peak), but it needs two grid-wide sums, and each costs a grid barrier and
+// a round trip to L2 (~2.4 us together, measured on 132 one-row bands).
+// Two kernels:
 //
-// Semantics follow the plain twin (pcg_solve_split): x0 = 0, the test
-// ||r||^2 > rtol^2 ||b||^2 before every iteration, at most maxiter
-// iterations, a zero step where p.Ap == 0 or r.z == 0, and the per-pixel
-// 2x2 block-Jacobi preconditioner with 1e-12 guards.
+// * cg_resident (the main path's sizes): one block per SM owns a band of
+//   rows.  p, the coefficients and the preconditioner of the band stay in
+//   shared memory and x, r and A p / z in registers (PPT pixels a thread)
+//   for the whole solve, so inside the loop the only global traffic is one
+//   double partial per block per sum and the band's first and last rows of
+//   z.  Two barriers an iteration: (A) A p and p.Ap, barrier; (B) alpha, x,
+//   r, z, r.z and r.r, publish z's boundary rows, barrier; (C) beta and
+//   p = z + beta p on the band, and on the two halo rows from the
+//   neighbours' z and the halo p this block already holds (the owner's
+//   float expression on the owner's bits, so equal to the owner's p bit for
+//   bit).  A system that one block holds runs as one block with
+//   __syncthreads only.
+// * cg_kernel (too large to stay on chip): a grid-stride loop over planes in
+//   global memory (L2), three grid barriers an iteration.
+//
+// Every block reduces the per-block partials itself, in one fixed order (no
+// float atomics), so every block takes the same branch and the result
+// repeats run to run.  Semantics follow the plain twin (pcg_solve_split):
+// x0 = 0, the test ||r||^2 > rtol^2 ||b||^2 before every iteration, at most
+// maxiter iterations, a zero step where p.Ap == 0 or r.z == 0, and the
+// per-pixel 2x2 block-Jacobi preconditioner with 1e-12 guards.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
@@ -202,7 +214,382 @@ __global__ void __launch_bounds__(kThreads) cg_kernel(CgArgs s) {
   }
 }
 
+// ---------------------------------------------------------------- resident
+
+constexpr int kResThreads = 256;
+constexpr int kResMaxBlocks = kResThreads;  // one reader thread per block
+
+// How the blocks wait for each other: kBarBlock, one block alone;
+// kBarCoop, cooperative groups' grid barrier (cooperative launch).  It was
+// faster here than an arrive counter or per-block epoch flags (PERF.md).
+enum BarrierKind { kBarBlock = 0, kBarCoop = 1 };
+
+template <int kBar>
+__device__ __forceinline__ void barrier_sync() {
+  if constexpr (kBar == kBarCoop)
+    cg::this_grid().sync();
+  else
+    __syncthreads();
+}
+
+struct ResArgs {
+  const float *a11, *a12, *a22, *wuh, *wuv, *wvh, *wvv, *bu, *bv;
+  float* x;        // (H, W, 2)
+  float* zhalo;    // (blocks, 2 sides, 2 fields, W): z on each band's first and last row
+  double* partials;  // (2 parities, 2 sums, kResMaxBlocks)
+  int* iters;
+  int H, W;
+  float rtol2;
+  int maxiter;
+};
+
+// rows [row0, row0 + rows) of band b of nb: the first H % nb bands take one
+// row more (band_bounds in ops/cuda/cg_kernel.py)
+__device__ __forceinline__ void band_of(int b, int nb, int H, int& row0, int& rows) {
+  const int base = H / nb, extra = H % nb;
+  rows = base + (b < extra ? 1 : 0);
+  row0 = b * base + (b < extra ? b : extra);
+}
+
+// the diagonal of the Laplacian from the four incident weights (0 where there
+// is no neighbour), in the twin's order: ((wh + wh_left) + wv) + wv_up
+__device__ __forceinline__ float diag4(float wh, float whl, float wv, float wvu) {
+  return ((wh + whl) + wv) + wvu;
+}
+
+__device__ __forceinline__ void block_jacobi(float du, float dv, float a12, float& i00, float& i01,
+                                             float& i11) {
+  const float dinv_u = fabsf(du) > 1e-12f ? 1.0f / du : 0.0f;
+  const float dinv_v = fabsf(dv) > 1e-12f ? 1.0f / dv : 0.0f;
+  const float det = du * dv - a12 * a12;
+  const bool ok = fabsf(det) > 1e-12f;
+  i00 = ok ? dv / det : dinv_u;
+  i01 = ok ? -a12 / det : 0.0f;
+  i11 = ok ? du / det : dinv_v;
+}
+
+// z = M^-1 b at pixel (i, j), every input read from global memory: what a
+// block computes for the halo rows of p = z at the start, bit for bit what
+// the owner of those rows computes from the same values in shared memory.
+__device__ void p0_at(const ResArgs& s, int i, int j, float& pu, float& pv) {
+  const int g = i * s.W + j;
+  const float du = s.a11[g] + diag4(s.wuh[g], j > 0 ? s.wuh[g - 1] : 0.0f, s.wuv[g],
+                                    i > 0 ? s.wuv[g - s.W] : 0.0f);
+  const float dv = s.a22[g] + diag4(s.wvh[g], j > 0 ? s.wvh[g - 1] : 0.0f, s.wvv[g],
+                                    i > 0 ? s.wvv[g - s.W] : 0.0f);
+  float i00, i01, i11;
+  block_jacobi(du, dv, s.a12[g], i00, i01, i11);
+  const float bu = s.bu[g], bv = s.bv[g];
+  pu = i00 * bu + i01 * bv;
+  pv = i01 * bu + i11 * bv;
+}
+
+// Sums v over the block; every thread gets the sums.
+template <int N>
+__device__ void block_sum(double (&v)[N], double (*red)[kResThreads / 32]) {
+  for (int o = 16; o > 0; o >>= 1)
+#pragma unroll
+    for (int q = 0; q < N; ++q) v[q] += __shfl_down_sync(0xffffffffu, v[q], o);
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0)
+#pragma unroll
+    for (int q = 0; q < N; ++q) red[q][warp] = v[q];
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < N; ++q) {
+    v[q] = 0.0;
+    for (int w = 0; w < kResThreads / 32; ++w) v[q] += red[q][w];
+  }
+  __syncthreads();
+}
+
+// A grid-wide sum in two steps, so that the caller can fetch other blocks'
+// data between them.  grid_publish: the block's sums go to `partials` (the
+// half of the epoch's parity, rewritten two epochs later when every block
+// has read it), then the grid barrier.  grid_collect: thread i < gridDim.x
+// fetches block i's sums (one round trip to L2 for all), and warp 0 adds
+// them in one fixed order (lane l takes blocks l, l + 32, ..., then a
+// shuffle tree), so every block gets the same bits.  A single block
+// (kBarBlock) skips both.
+template <int N, int kBar>
+__device__ void grid_publish(double (&v)[N], unsigned epoch, const ResArgs& s,
+                             double (*red)[kResThreads / 32]) {
+  block_sum<N>(v, red);
+  if constexpr (kBar == kBarBlock) return;
+  if (threadIdx.x == 0)
+#pragma unroll
+    for (int q = 0; q < N; ++q) s.partials[(2 * (epoch & 1) + q) * kResMaxBlocks + blockIdx.x] = v[q];
+  barrier_sync<kBar>();
+}
+
+template <int N, int kBar>
+__device__ void grid_collect(double (&v)[N], unsigned epoch, const ResArgs& s,
+                             double (*red)[kResThreads / 32], double (*gath)[kResThreads]) {
+  if constexpr (kBar == kBarBlock) return;
+  const int tid = threadIdx.x;
+  if (tid < (int)gridDim.x)
+#pragma unroll
+    for (int q = 0; q < N; ++q) gath[q][tid] = __ldcg(s.partials + (2 * (epoch & 1) + q) * kResMaxBlocks + tid);
+  __syncthreads();
+  if (tid < 32) {
+#pragma unroll
+    for (int q = 0; q < N; ++q) {
+      double a = 0.0;
+      for (int i = tid; i < (int)gridDim.x; i += 32) a += gath[q][i];
+      for (int o = 16; o > 0; o >>= 1) a += __shfl_down_sync(0xffffffffu, a, o);
+      if (tid == 0) red[q][0] = a;
+    }
+  }
+  __syncthreads();
+#pragma unroll
+  for (int q = 0; q < N; ++q) v[q] = red[q][0];
+  __syncthreads();
+}
+
+// One block per band of rows.  Shared memory, in floats: p_u, p_v with a
+// halo row above and below, (rows + 2) W each; the vertical weights with the
+// row above, (rows + 1) W each; the horizontal weights, the data block and
+// the preconditioner, rows W each.  Registers: x, r and t (A p, then z) of
+// PPT pixels a thread.
+template <int PPT, int kBar>
+__global__ void __launch_bounds__(kResThreads, 1) cg_resident(ResArgs s) {
+  extern __shared__ float smem[];
+  __shared__ double red[2][kResThreads / 32];
+  __shared__ double gath[2][kResThreads];
+  const int W = s.W, H = s.H, nb = gridDim.x, b = blockIdx.x, tid = threadIdx.x;
+  int row0, rows;
+  band_of(b, nb, H, row0, rows);
+  const int n = rows * W;
+  float* spu = smem;
+  float* spv = spu + (rows + 2) * W;
+  float* swuv = spv + (rows + 2) * W;
+  float* swvv = swuv + (rows + 1) * W;
+  float* swuh = swvv + (rows + 1) * W;
+  float* swvh = swuh + n;
+  float* sa11 = swvh + n;
+  float* sa12 = sa11 + n;
+  float* sa22 = sa12 + n;
+  float* si00 = sa22 + n;
+  float* si01 = si00 + n;
+  float* si11 = si01 + n;
+  const bool above = row0 > 0, below = row0 + rows < H;
+  unsigned epoch = 0;
+
+  for (int j = tid; j < W; j += kResThreads) {
+    swuv[j] = above ? s.wuv[(row0 - 1) * W + j] : 0.0f;
+    swvv[j] = above ? s.wvv[(row0 - 1) * W + j] : 0.0f;
+    float pu = 0.0f, pv = 0.0f;
+    if (above) p0_at(s, row0 - 1, j, pu, pv);
+    spu[j] = pu;
+    spv[j] = pv;
+    pu = 0.0f;
+    pv = 0.0f;
+    if (below) p0_at(s, row0 + rows, j, pu, pv);
+    spu[(rows + 1) * W + j] = pu;
+    spv[(rows + 1) * W + j] = pv;
+  }
+  for (int q = tid; q < n; q += kResThreads) {
+    const int g = row0 * W + q;
+    swuh[q] = s.wuh[g];
+    swvh[q] = s.wvh[g];
+    swuv[W + q] = s.wuv[g];
+    swvv[W + q] = s.wvv[g];
+    sa11[q] = s.a11[g];
+    sa12[q] = s.a12[g];
+    sa22[q] = s.a22[g];
+  }
+  __syncthreads();
+
+  int ij[PPT];  // (band row << 16) | column, or -1 past the band
+  float xu[PPT], xv[PPT], ru[PPT], rv[PPT], tu[PPT], tv[PPT];
+  double sums[2] = {0.0, 0.0};
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    const int q = k * kResThreads + tid;
+    ij[k] = -1;
+    xu[k] = xv[k] = ru[k] = rv[k] = tu[k] = tv[k] = 0.0f;
+    if (q < n) {
+      const int il = q / W, j = q - il * W, i = row0 + il;
+      ij[k] = (il << 16) | j;
+      const float du = sa11[q] + diag4(swuh[q], j > 0 ? swuh[q - 1] : 0.0f, swuv[W + q],
+                                       i > 0 ? swuv[q] : 0.0f);
+      const float dv = sa22[q] + diag4(swvh[q], j > 0 ? swvh[q - 1] : 0.0f, swvv[W + q],
+                                       i > 0 ? swvv[q] : 0.0f);
+      float i00, i01, i11;
+      block_jacobi(du, dv, sa12[q], i00, i01, i11);
+      si00[q] = i00;
+      si01[q] = i01;
+      si11[q] = i11;
+      const float bu = s.bu[row0 * W + q], bv = s.bv[row0 * W + q];
+      const float zu = i00 * bu + i01 * bv;
+      const float zv = i01 * bu + i11 * bv;
+      ru[k] = bu;
+      rv[k] = bv;
+      spu[W + q] = zu;
+      spv[W + q] = zv;
+      sums[0] += (double)bu * zu + (double)bv * zv;
+      sums[1] += (double)bu * bu + (double)bv * bv;
+    }
+  }
+  grid_publish<2, kBar>(sums, ++epoch, s, red);  // also orders the p writes above
+  grid_collect<2, kBar>(sums, epoch, s, red, gath);
+  float rz = (float)sums[0];
+  float rr = (float)sums[1];
+  const float tol2 = s.rtol2 * rr;
+
+  int it = 0;
+  while (it < s.maxiter && rr > tol2) {
+    // (A) t = A p, p.Ap
+    double pap[1] = {0.0};
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (ij[k] < 0) continue;
+      const int il = ij[k] >> 16, j = ij[k] & 0xffff, i = row0 + il;
+      const int q = il * W + j, c = q + W;  // c: the pixel in the haloed planes
+      const float pu = spu[c], pv = spv[c];
+      const float pur = j < W - 1 ? spu[c + 1] : 0.0f, pvr = j < W - 1 ? spv[c + 1] : 0.0f;
+      const float pud = i < H - 1 ? spu[c + W] : 0.0f, pvd = i < H - 1 ? spv[c + W] : 0.0f;
+      // (F^T diag(w) F p) in the twin's order ((eh + ev) - eh_left) - ev_up
+      const float eh_u = swuh[q] * (pu - pur), ev_u = swuv[c] * (pu - pud);
+      const float eh_v = swvh[q] * (pv - pvr), ev_v = swvv[c] * (pv - pvd);
+      const float ehl_u = j > 0 ? swuh[q - 1] * (spu[c - 1] - pu) : 0.0f;
+      const float ehl_v = j > 0 ? swvh[q - 1] * (spv[c - 1] - pv) : 0.0f;
+      const float evu_u = i > 0 ? swuv[q] * (spu[q] - pu) : 0.0f;
+      const float evu_v = i > 0 ? swvv[q] * (spv[q] - pv) : 0.0f;
+      const float a12 = sa12[q];
+      tu[k] = (sa11[q] * pu + a12 * pv) + (((eh_u + ev_u) - ehl_u) - evu_u);
+      tv[k] = (a12 * pu + sa22[q] * pv) + (((eh_v + ev_v) - ehl_v) - evu_v);
+      pap[0] += (double)pu * tu[k] + (double)pv * tv[k];
+    }
+    grid_publish<1, kBar>(pap, ++epoch, s, red);
+    grid_collect<1, kBar>(pap, epoch, s, red, gath);
+    const float pap_f = (float)pap[0];
+    const float alpha = pap_f != 0.0f ? rz / pap_f : 0.0f;
+
+    // (B) x += alpha p;  r -= alpha A p;  t = z = M^-1 r;  r.z, r.r;  z's boundary rows out
+    double rzrr[2] = {0.0, 0.0};
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (ij[k] < 0) continue;
+      const int il = ij[k] >> 16, j = ij[k] & 0xffff, q = il * W + j;
+      xu[k] += alpha * spu[q + W];
+      xv[k] += alpha * spv[q + W];
+      ru[k] = ru[k] - alpha * tu[k];
+      rv[k] = rv[k] - alpha * tv[k];
+      const float i01 = si01[q];
+      tu[k] = si00[q] * ru[k] + i01 * rv[k];
+      tv[k] = i01 * ru[k] + si11[q] * rv[k];
+      if (kBar != kBarBlock) {
+        if (il == 0) {
+          s.zhalo[(b * 4 + 0) * W + j] = tu[k];
+          s.zhalo[(b * 4 + 1) * W + j] = tv[k];
+        }
+        if (il == rows - 1) {
+          s.zhalo[(b * 4 + 2) * W + j] = tu[k];
+          s.zhalo[(b * 4 + 3) * W + j] = tv[k];
+        }
+      }
+      rzrr[0] += (double)ru[k] * tu[k] + (double)rv[k] * tv[k];
+      rzrr[1] += (double)ru[k] * ru[k] + (double)rv[k] * rv[k];
+    }
+    grid_publish<2, kBar>(rzrr, ++epoch, s, red);
+    grid_collect<2, kBar>(rzrr, epoch, s, red, gath);
+    const float rz_new = (float)rzrr[0];
+    rr = (float)rzrr[1];
+    const float beta = rz != 0.0f ? rz_new / rz : 0.0f;
+
+    // (C) p = z + beta p on the band and on both halo rows
+#pragma unroll
+    for (int k = 0; k < PPT; ++k) {
+      if (ij[k] < 0) continue;
+      const int c = ((ij[k] >> 16) + 1) * W + (ij[k] & 0xffff);
+      spu[c] = tu[k] + beta * spu[c];
+      spv[c] = tv[k] + beta * spv[c];
+    }
+    if (kBar != kBarBlock) {
+      for (int j = tid; j < W; j += kResThreads) {
+        if (above) {
+          spu[j] = __ldcg(&s.zhalo[((b - 1) * 4 + 2) * W + j]) + beta * spu[j];
+          spv[j] = __ldcg(&s.zhalo[((b - 1) * 4 + 3) * W + j]) + beta * spv[j];
+        }
+        if (below) {
+          const int c = (rows + 1) * W + j;
+          spu[c] = __ldcg(&s.zhalo[((b + 1) * 4 + 0) * W + j]) + beta * spu[c];
+          spv[c] = __ldcg(&s.zhalo[((b + 1) * 4 + 1) * W + j]) + beta * spv[c];
+        }
+      }
+    }
+    rz = rz_new;
+    ++it;
+    __syncthreads();
+  }
+#pragma unroll
+  for (int k = 0; k < PPT; ++k) {
+    if (ij[k] < 0) continue;
+    const int g = (row0 + (ij[k] >> 16)) * W + (ij[k] & 0xffff);
+    s.x[2 * g] = xu[k];
+    s.x[2 * g + 1] = xv[k];
+  }
+  if (b == 0 && tid == 0) {
+    s.iters[0] = it;
+    s.iters[1] += it;
+  }
+}
+
+template <int PPT, int kBar>
+cudaError_t launch_resident(ResArgs& s, int blocks, int smem, cudaStream_t st) {
+  const void* fn = (const void*)cg_resident<PPT, kBar>;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return err;
+  void* kargs[] = {&s};
+  if (kBar == kBarBlock) return cudaLaunchKernel(fn, dim3(1), dim3(kResThreads), kargs, smem, st);
+  return cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kResThreads), kargs, smem, st);
+}
+
+template <int kBar>
+cudaError_t launch_resident_ppt(ResArgs& s, int blocks, int ppt, int smem, cudaStream_t st) {
+  switch (ppt) {
+    case 1: return launch_resident<1, kBar>(s, blocks, smem, st);
+    case 2: return launch_resident<2, kBar>(s, blocks, smem, st);
+    case 4: return launch_resident<4, kBar>(s, blocks, smem, st);
+    case 8: return launch_resident<8, kBar>(s, blocks, smem, st);
+    default: return cudaErrorInvalidValue;
+  }
+}
+
 }  // namespace
+
+// The card's SM count and the shared memory a block may opt in to.
+extern "C" int device_limits(int* out) {
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&out[0], cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess) err = cudaDeviceGetAttribute(&out[1], cudaDevAttrMaxSharedMemoryPerBlockOptin, dev);
+  return (int)err;
+}
+
+// The resident solve: `blocks` bands (1: one block, no grid barrier), PPT
+// pixels a thread, `smem` bytes of dynamic shared memory, as cg_plan in
+// ops/cuda/cg_kernel.py chooses them.  zhalo: blocks * 4 * W floats;
+// partials: 4 * kResMaxBlocks doubles; iters: 2 ints.
+extern "C" int cg_resident_f32(const float* a11, const float* a12, const float* a22, const float* wuh,
+                               const float* wuv, const float* wvh, const float* wvv, const float* bu,
+                               const float* bv, float* x, float* zhalo, double* partials, int* iters,
+                               int H, int W, float rtol2, int maxiter, int blocks, int ppt, int smem,
+                               void* stream) {
+  if (blocks < 1 || blocks > kResMaxBlocks || blocks > H || W >= 65536) return (int)cudaErrorInvalidValue;
+  ResArgs s;
+  s.a11 = a11; s.a12 = a12; s.a22 = a22;
+  s.wuh = wuh; s.wuv = wuv; s.wvh = wvh; s.wvv = wvv;
+  s.bu = bu; s.bv = bv;
+  s.x = x; s.zhalo = zhalo; s.partials = partials; s.iters = iters;
+  s.H = H; s.W = W; s.rtol2 = rtol2; s.maxiter = maxiter;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  const cudaError_t err = blocks == 1 ? launch_resident_ppt<kBarBlock>(s, 1, ppt, smem, st)
+                                      : launch_resident_ppt<kBarCoop>(s, blocks, ppt, smem, st);
+  if (err != cudaSuccess) return (int)err;
+  return (int)cudaGetLastError();
+}
 
 // Coefficient planes (H, W) each; x: (H, W, 2) out; work: 11 planes (H, W);
 // partials: 4 * kMaxBlocks doubles; iters: 2 ints.

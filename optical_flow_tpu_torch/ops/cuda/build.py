@@ -1,8 +1,8 @@
 """Build and load the package's CUDA kernels (``csrc/*.cu``) at first use.
 
-``nvcc`` compiles every source into one shared library with a plain C
-interface, loaded with ``ctypes`` (no PyTorch headers, so a build takes
-seconds).  The library lives in ``optical_flow_tpu_torch/_build/<key>/``,
+``nvcc`` compiles each source to an object, all at once in parallel, and
+links them into one shared library with a plain C interface, loaded with
+``ctypes`` (no PyTorch headers, so a build takes seconds).  The library lives in ``optical_flow_tpu_torch/_build/<key>/``,
 where ``<key>`` hashes the sources and the flags, so an edited source
 rebuilds and an unchanged one is reused.  Nothing here runs at import time.
 
@@ -28,7 +28,7 @@ BUILD_ROOT = PKG_DIR / "_build"
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "--fmad=false",
-    "-shared", "-Xcompiler", "-fPIC",
+    "-Xcompiler", "-fPIC",
     "-Xptxas", "-v",
 )
 
@@ -40,11 +40,18 @@ _F = ctypes.c_float
 SIGNATURES = {
     # u, v, occ, guide, out, B, C, H, W, hsz, inv_2sigma2, stream
     "wmedian_f32": [_P, _P, _P, _P, _P, _I, _I, _I, _I, _I, _F, _P],
+    # out: [SM count, shared memory a block may opt in to]
+    "device_limits": [_P],
     # a11, a12, a22, wu_h, wu_v, wv_h, wv_v, b_u, b_v, x, work, partials,
     # iters, H, W, rtol2, maxiter, stream
     "cg_solve_f32": [_P] * 13 + [_I, _I, _F, _I, _P],
+    # a11, a12, a22, wu_h, wu_v, wv_h, wv_v, b_u, b_v, x, zhalo, partials,
+    # iters, H, W, rtol2, maxiter, blocks, ppt, smem, stream
+    "cg_resident_f32": [_P] * 13 + [_I, _I, _F, _I, _I, _I, _I, _P],
     # im, p, out, B, H, W, theta, n_iters, stream
     "rof_structure_f32": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
+    # im, halo, out, B, H, W, theta, n_iters, per_image, smem, stream
+    "rof_resident_f32": [_P] * 3 + [_I, _I, _I, _F, _I, _I, _I, _P],
 }
 
 _lock = threading.Lock()
@@ -86,11 +93,24 @@ def load_library() -> ctypes.CDLL:
         if not so.exists():
             out_dir.mkdir(parents=True, exist_ok=True)
             tmp = out_dir / f"libofkernels.{os.getpid()}.so"
-            cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), *[str(s) for s in _sources() if s.suffix == ".cu"]]
-            proc = subprocess.run(cmd, capture_output=True, text=True)
-            build_log = proc.stdout + proc.stderr
-            if proc.returncode != 0:
-                raise RuntimeError(f"nvcc failed ({proc.returncode}):\n{build_log}")
+            nvcc = _nvcc()
+            objs, procs = [], []
+            for src in (s for s in _sources() if s.suffix == ".cu"):
+                obj = out_dir / f"{src.stem}.{os.getpid()}.o"
+                cmd = [nvcc, *NVCC_FLAGS, "-c", "-o", str(obj), str(src)]
+                objs.append(obj)
+                procs.append(subprocess.Popen(cmd, stdout=subprocess.PIPE, stderr=subprocess.STDOUT, text=True))
+            logs = [p.communicate()[0] for p in procs]
+            link = None
+            if all(p.returncode == 0 for p in procs):
+                link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", str(tmp),
+                                       *map(str, objs)], capture_output=True, text=True)
+                logs.append(link.stdout + link.stderr)
+            build_log = "".join(logs)
+            for obj in objs:
+                obj.unlink(missing_ok=True)
+            if link is None or link.returncode != 0:
+                raise RuntimeError(f"nvcc failed:\n{build_log}")
             os.replace(tmp, so)
         lib = ctypes.CDLL(str(so))
         for name, argtypes in SIGNATURES.items():
@@ -105,6 +125,22 @@ def check(err: int, name: str) -> None:
     """Raise if a C entry returned a CUDA error."""
     if err != 0:
         raise RuntimeError(f"CUDA kernel {name} failed: cudaError_t {err}")
+
+
+_limits = {}
+
+
+def device_limits(device) -> tuple:
+    """(SM count, shared memory a block may opt in to, in bytes) of a CUDA device."""
+    import torch
+
+    device = torch.device(device)
+    if device not in _limits:
+        out = (ctypes.c_int * 2)()
+        with torch.cuda.device(device):
+            check(load_library().device_limits(out), "device_limits")
+        _limits[device] = (out[0], out[1])
+    return _limits[device]
 
 
 def current_stream(device) -> int:

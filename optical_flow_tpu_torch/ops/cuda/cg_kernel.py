@@ -6,31 +6,90 @@ PCG on the coupled 2-field 5-point system, from x0 = 0, stopping when
 ``||r||^2 <= rtol^2 ||b||^2`` (tested before every iteration) or at
 ``maxiter``.
 
-On the H100 an iteration is bound by plane traffic (~100 bytes per pixel,
-L2-resident at the main path's sizes) and by grid-wide synchronisation.
-The kernel runs the whole loop in one cooperative launch (three grid
-barriers per iteration, dot products reduced per block then in a fixed
-order by every block), so a solve costs one launch and no host round trip;
-the plain twin below costs ~10 launches and a host sync per iteration.
+On the H100 an iteration is bound by latency and grid-wide
+synchronisation, not arithmetic: it needs two grid-wide sums.  A solve is
+one launch with the whole loop on the device, by one of two paths that
+:func:`cg_plan` chooses from the shape and the card alone:
+
+* ``resident``: one block per SM owns a band of rows and keeps the band's
+  state in registers and shared memory for the whole solve; two grid
+  barriers per iteration.  A system that one block holds runs as one block
+  (``single``), with no grid barrier.
+* ``streaming``: planes in global memory (L2), a grid-stride loop, three
+  grid barriers per iteration; for systems too large to stay on chip.
+
+A resident launch that the card refuses raises; it never falls back.  The
+plain twin below costs ~10 launches and a host sync per iteration.
 """
 from __future__ import annotations
 
+from typing import NamedTuple
+
 import torch
 
-from optical_flow_tpu_torch.ops.cuda.build import check, current_stream, load_library, require_cuda_f32
+from optical_flow_tpu_torch.ops.cuda.build import check, current_stream, device_limits, load_library, require_cuda_f32
 from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply_split, weighted_laplacian_diag
 
-_MAX_BLOCKS = 2048  # kMaxBlocks in csrc/cg.cu
+_MAX_BLOCKS = 2048  # kMaxBlocks in csrc/cg.cu (streaming kernel)
+RES_THREADS = 256  # kResThreads in csrc/cg.cu
+RES_MAX_BLOCKS = 256  # kResMaxBlocks in csrc/cg.cu
+RES_STATIC_SMEM = 5120  # bytes kept for the kernel's static shared memory (4,224 used)
+PPTS = (1, 2, 4, 8)  # pixels a thread (csrc/cg.cu instantiates these)
+
 launches = 0  # kernel launches (one per solve)
+launches_resident = 0  # of which on the resident path (one block or one per SM)
+launches_streaming = 0  # of which on the streaming path
 _iters = {}  # device -> int32 (2,): [last solve's iterations, running total]
 
 
 def reset_stats() -> None:
-    """Zero the launch count and the on-device iteration total."""
-    global launches
-    launches = 0
+    """Zero the launch counts and the on-device iteration total."""
+    global launches, launches_resident, launches_streaming
+    launches = launches_resident = launches_streaming = 0
     for buf in _iters.values():
         buf.zero_()
+
+
+class CgPlan(NamedTuple):
+    """How a solve runs: ``path`` is "single", "resident" or "streaming";
+    ``blocks`` bands, ``ppt`` pixels a thread and ``smem`` bytes of dynamic
+    shared memory a block (0 on the streaming path)."""
+
+    path: str
+    blocks: int = 0
+    ppt: int = 0
+    smem: int = 0
+
+
+def band_bounds(H: int, nb: int):
+    """[(row0, rows)] of the ``nb`` bands of ``H`` rows, as ``band_of`` in
+    csrc/cg.cu and csrc/rof.cu: the first ``H % nb`` bands take one row more."""
+    base, extra = divmod(H, nb)
+    return [(b * base + min(b, extra), base + (b < extra)) for b in range(nb)]
+
+
+def resident_smem(rows: int, W: int) -> int:
+    """Dynamic shared memory of a resident block of ``rows`` rows: p_u, p_v
+    with two halo rows, the vertical weights with the row above, and eight
+    planes of the band (horizontal weights, data block, preconditioner)."""
+    return 4 * W * (2 * (rows + 2) + 2 * (rows + 1) + 8 * rows)
+
+
+def cg_plan(H: int, W: int, sms: int, smem_optin: int) -> CgPlan:
+    """The path of an (H, W) solve on a card with ``sms`` SMs and
+    ``smem_optin`` bytes of shared memory a block: one block if it holds the
+    system, else one band per SM if every band fits, else streaming."""
+    limit = smem_optin - RES_STATIC_SMEM
+    if W < 65536:  # the kernel packs a pixel's row and column into 16 bits each
+        for ppt in PPTS:
+            if H * W <= ppt * RES_THREADS and resident_smem(H, W) <= limit:
+                return CgPlan("single", 1, ppt, resident_smem(H, W))
+        nb = min(sms, H, RES_MAX_BLOCKS)
+        rows = -(-H // nb)
+        for ppt in PPTS:
+            if rows * W <= ppt * RES_THREADS and resident_smem(rows, W) <= limit:
+                return CgPlan("resident", nb, ppt, resident_smem(rows, W))
+    return CgPlan("streaming")
 
 
 def iteration_counts(device) -> tuple:
@@ -112,23 +171,47 @@ def cg_solve(sys: FlowSystem, rtol: float, maxiter: int):
     CPU tensors run the plain twin; contiguous float32 CUDA planes run the
     kernel; anything else raises.
     """
-    global launches
+    global launches, launches_resident, launches_streaming
     if sys.a11.device.type == "cpu":
         return cg_solve_plain(sys, rtol, maxiter)
     planes = [f.contiguous() for f in sys]
     require_cuda_f32("cg_solve", *planes)
     H, W = planes[0].shape
+    plan = cg_plan(H, W, *device_limits(planes[0].device))
+    x = launch(planes, rtol, maxiter, plan)
+    launches += 1
+    if plan.path == "streaming":
+        launches_streaming += 1
+    else:
+        launches_resident += 1
+    return x
+
+
+def launch(planes, rtol: float, maxiter: int, plan: CgPlan):
+    """Launch the kernel of ``plan`` on nine contiguous float32 (H, W) CUDA
+    planes; returns the (H, W, 2) solution.  :func:`cg_solve` is the entry
+    point; ``chip_smoke.py`` calls this to time one path against another."""
+    H, W = planes[0].shape
     dev = planes[0].device
     lib = load_library()
     x = torch.empty((H, W, 2), dtype=torch.float32, device=dev)
-    work = torch.empty((11, H, W), dtype=torch.float32, device=dev)
-    partials = torch.empty(4 * _MAX_BLOCKS, dtype=torch.float64, device=dev)
     if dev not in _iters:
         _iters[dev] = torch.zeros(2, dtype=torch.int32, device=dev)
-    err = lib.cg_solve_f32(
-        *[p.data_ptr() for p in planes], x.data_ptr(), work.data_ptr(), partials.data_ptr(),
-        _iters[dev].data_ptr(), H, W, float(rtol) ** 2, int(maxiter), current_stream(dev),
+    if plan.path == "streaming":
+        work = torch.empty((11, H, W), dtype=torch.float32, device=dev)
+        partials = torch.empty(4 * _MAX_BLOCKS, dtype=torch.float64, device=dev)
+        err = lib.cg_solve_f32(
+            *[p.data_ptr() for p in planes], x.data_ptr(), work.data_ptr(), partials.data_ptr(),
+            _iters[dev].data_ptr(), H, W, float(rtol) ** 2, int(maxiter), current_stream(dev),
+        )
+        check(err, "cg_solve_f32")
+        return x
+    zhalo = torch.empty((plan.blocks, 4, W), dtype=torch.float32, device=dev)
+    partials = torch.empty(4 * RES_MAX_BLOCKS, dtype=torch.float64, device=dev)
+    err = lib.cg_resident_f32(
+        *[p.data_ptr() for p in planes], x.data_ptr(), zhalo.data_ptr(), partials.data_ptr(),
+        _iters[dev].data_ptr(), H, W, float(rtol) ** 2, int(maxiter), plan.blocks, plan.ppt, plan.smem,
+        current_stream(dev),
     )
-    check(err, "cg_solve_f32")
-    launches += 1
+    check(err, "cg_resident_f32")
     return x
