@@ -27,7 +27,20 @@ Phases, each printing its results; any failed check exits non-zero:
    |dx|, residual, iterations), one solve's time, microseconds per
    iteration and the bound at each level shape, and the 21 solves' sum;
 6. one frame under torch.profiler: device busy time, idle share, the
-   device time of each kernel and the ROF kernel's device launches.
+   device time of each kernel and the ROF kernel's device launches;
+7. the BA and Horn–Schunck paths, each ``estimate_flow(rgb1, rgb2, name,
+   {"display": False}, device="cuda")`` on RubberWhale 584x388 at the
+   preset's full schedule: ``classic++`` (90 PCG solves at rtol 1e-7,
+   1 ROF call), ``ba`` (the cubic B-spline warp) and ``hs`` (the HS
+   system, early stop).  For each: AAE / AEPE within the reference
+   oracle's gate (``benchmarks/middlebury.py``), the kernels' launches by
+   path (none of the plain twins may run), CG iterations per level (for
+   hs, the warp iterations the early stop left), the per-frame latency
+   (median of 3 warm runs); for classic++ also the 10 finest-level solves
+   of the last GNC stage against the plain twin and one profiled frame
+   with the median filter as its own row;
+8. the plain-PyTorch median filter and B-spline prefilter on the card at
+   388x584: equal to their CPU results, and one call's time.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -36,10 +49,13 @@ its bound (the larger of bytes over 3.35 TB/s and operations over the
 67 TFLOP/s float32 peak of an H100 SXM), all from phase 2.  The weighted
 median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
 ``frame_sum_*`` (the 21 calls summed); PCG's and ROF's add the previous
-(streaming) kernel's time on phase 2's input as ``streaming_ms``.  Without a CUDA device, or
+(streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
+entry's ``launches`` sums ``launches_by_path``, the launches in one frame
+of each path driven (counts set to 0 just before it).  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
+import contextlib
 import json
 import math
 import os
@@ -56,6 +72,16 @@ REPO = os.path.dirname(os.path.abspath(__file__))
 TARGET_AAE, TARGET_AEPE = 2.500, 0.0813
 GATE_AAE, GATE_AEPE = 0.2, 0.01
 PARAMS = {"display": False, "solver": "pcg"}
+# the BA and HS paths at their presets' own settings: the reference oracle's
+# RubberWhale AAE / AEPE (benchmarks/results_ref_oracle_methods.json) and
+# benchmarks/middlebury.py's gates for each
+PATH_PARAMS = {"display": False}
+PATH_GATES = {
+    "classic++": ((2.6737, 0.08241), (0.2, 0.02)),
+    "ba": ((2.8129, 0.08564), (0.2, 0.02)),
+    "hs": ((3.361, 0.10439), (0.2, 0.01)),
+}
+LATENCY_RUNS = 3
 SEED = 0
 # an H100 SXM's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -642,23 +668,38 @@ def phase_cg_levels(torch, dev, card, recorded):
             "main_path_max_abs_err": err, "frame_sum_ms": frame_ms, "frame_sum_bound_ms": frame_bound}
 
 
-def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms):
+def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms, method="classic+nl-fast", params=PARAMS):
     """One warm frame under torch.profiler: device busy time (the union of the
-    device intervals), idle share, and device time by kernel."""
+    device intervals), idle share, and device time by kernel; the plain
+    median filter's device time (every kernel launched inside a
+    ``median_pair`` call) is its own row."""
     from torch.autograd import DeviceType
-    from torch.profiler import ProfilerActivity, profile
+    from torch.profiler import ProfilerActivity, profile, record_function
 
     from optical_flow_tpu_torch import estimate_flow
+    from optical_flow_tpu_torch.methods import ba as ba_mod, hs as hs_mod
+
+    pair = ba_mod.median_pair
+
+    def labelled(uv, size):
+        with record_function("median_filter2d"):
+            return pair(uv, size)
 
     torch.cuda.synchronize()
-    with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
-        t0 = time.perf_counter()
-        estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
-        torch.cuda.synchronize()
-        wall_ms = 1e3 * (time.perf_counter() - t0)
-    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA]
+    ba_mod.median_pair = hs_mod.median_pair = labelled
+    try:
+        with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
+            t0 = time.perf_counter()
+            estimate_flow(rgb1, rgb2, method, params, device=dev)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+    finally:
+        ba_mod.median_pair = hs_mod.median_pair = pair
+    # the ranges around median_pair appear once on the host and once as a
+    # device annotation; only kernels count as device events
+    events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name != "median_filter2d"]
     if not events:
-        print("profiled frame: the trace holds no device events; device split not measured")
+        print(f"profiled {method} frame: the trace holds no device events; device split not measured")
         return
     spans = sorted((e.time_range.start, e.time_range.end) for e in events)
     busy_us, end = 0.0, float("-inf")
@@ -666,20 +707,209 @@ def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms):
         if b > end:
             busy_us += b - max(a, end)
             end = b
-    split = {"wmedian": 0.0, "cg": 0.0, "rof": 0.0, "other": 0.0}
+    split = {"wmedian": 0.0, "cg": 0.0, "rof": 0.0, "median": 0.0, "other": 0.0}
     for e in events:
         key = next((k for k, tag in (("wmedian", "wmedian_kernel"), ("cg", "cg_"), ("rof", "rof_"))
                     if tag in e.name), "other")
         split[key] += e.time_range.end - e.time_range.start
+    # the median row: the device time of every kernel launched inside a median_pair call
+    ranges = [e for e in prof.events() if e.name == "median_filter2d" and e.device_type == DeviceType.CPU]
+    split["median"] = sum(getattr(e, "device_time_total", None) or getattr(e, "cuda_time_total", 0.0) for e in ranges)
+    split["other"] -= split["median"]
     busy_ms = busy_us / 1e3
-    print(f"profiled frame: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, {len(events)} device events, "
+    print(f"profiled {method} frame: wall {wall_ms:.2f} ms, device busy {busy_ms:.2f} ms, {len(events)} device events, "
           f"idle share {1 - busy_ms / wall_ms:.3f} of the profiled frame and {1 - busy_ms / frame_ms:.3f} "
           f"of the unprofiled {frame_ms:.2f} ms frame  [{card}]")
-    print("profiled frame, device ms by kernel: " + ", ".join(f"{k} {v / 1e3:.3f}" for k, v in split.items()))
+    median_row = f"{split['median'] / 1e3:.3f}" if split["median"] or not ranges else "not measured"
+    print(f"profiled {method} frame, device ms by kernel: " + ", ".join(
+        f"{k} {v / 1e3:.3f}" if k != "median" else f"median filter ({len(ranges)} calls) {median_row}"
+        for k, v in split.items()))
     rof_launches = sum("rof_" in e.name for e in events)
-    print(f"profiled frame: {rof_launches} ROF device launch(es), "
+    print(f"profiled {method} frame: {rof_launches} ROF device launch(es), "
           f"{sum('cg_' in e.name for e in events)} PCG device launches")
-    check(rof_launches == 1, f"ROF made {rof_launches} device launches in the frame, expected 1")
+    check(rof_launches == 1, f"ROF made {rof_launches} device launches in the {method} frame, expected 1")
+
+
+@contextlib.contextmanager
+def no_plain_twins():
+    """Within the block, a call of the PCG or ROF plain twin fails the run:
+    nothing on a path may run them on the card."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel
+
+    saved = [(m, n, getattr(m, n)) for m, n in ((cg_kernel, "cg_solve_plain"), (rof_kernel, "rof_structure_2d"))]
+    for m, n, _ in saved:
+        setattr(m, n, lambda *a, _n=n, **k: check(False, f"the plain twin {_n} ran on the path"))
+    try:
+        yield
+    finally:
+        for m, n, f in saved:
+            setattr(m, n, f)
+
+
+def level_runs(solves):
+    """[(shape, solves, iterations)] for each run of equal shapes, in order:
+    one pyramid level each."""
+    runs = []
+    for shape, iters in solves:
+        if runs and runs[-1][0] == shape:
+            runs[-1] = (shape, runs[-1][1] + 1, runs[-1][2] + iters)
+        else:
+            runs.append((shape, 1, iters))
+    return runs
+
+
+def phase_path(torch, dev, card, name, rgb1, rgb2, tu, tv, keep=0):
+    """One BA or HS path at its preset's full schedule; returns each kernel's
+    launches in one frame and, with ``keep``, the frame's last ``keep``
+    PCG systems."""
+    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
+    from optical_flow_tpu_torch.solvers import cg as cg_solvers
+
+    # warm-up frame, reading each solve's iterations (a sync a solve)
+    solves, kept, call = [], [], cg_solvers.cg_solve
+
+    def recording(sysm, rtol, maxiter):
+        x = call(sysm, rtol, maxiter)
+        solves.append((tuple(sysm.a11.shape), cg_kernel.iteration_counts(dev)[0]))
+        if keep:
+            kept.append((type(sysm)(*[f.clone() for f in sysm]), rtol, maxiter))
+            del kept[:-keep]
+        return x
+
+    cg_solvers.cg_solve = recording
+    try:
+        t0 = time.perf_counter()
+        estimate_flow(rgb1, rgb2, name, PATH_PARAMS, device=dev)
+        torch.cuda.synchronize()
+    finally:
+        cg_solvers.cg_solve = call
+    print(f"{name}: warm-up frame {time.perf_counter() - t0:.2f} s (host clock, one sync a solve)")
+
+    wmedian_kernel.launches = 0
+    rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_streaming = 0
+    cg_kernel.reset_stats()
+    with no_plain_twins():
+        uv = estimate_flow(rgb1, rgb2, name, PATH_PARAMS, device=dev)
+        torch.cuda.synchronize()
+    launches = {"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches}
+    by_path = {"cg resident": cg_kernel.launches_resident, "rof resident": rof_kernel.launches_resident}
+    cg_iters = cg_kernel.iteration_counts(uv.device)[1]
+
+    uv_np = uv.cpu().numpy()
+    check(uv_np.shape == (388, 584, 2) and uv_np.dtype == np.float32, f"{name}: unexpected flow {uv_np.shape} {uv_np.dtype}")
+    check(np.isfinite(uv_np).all(), f"{name}: flow is not finite")
+    aae, _, aepe = flow_angular_error(tu, tv, uv_np[..., 0], uv_np[..., 1])
+    (t_aae, t_aepe), (g_aae, g_aepe) = PATH_GATES[name]
+    print(f"{name} RubberWhale 584x388: AAE {aae:.4f} deg, AEPE {aepe:.5f} px (reference oracle {t_aae} / {t_aepe}, "
+          f"gate {g_aae} / {g_aepe})")
+    runs = level_runs(solves)
+    cg_frame_bound = sum(cg_bound(h, w, i)["bound_ms"] for (h, w), i in solves)
+    print(f"{name}: launches in one frame {launches}, {by_path}, CG iterations {cg_iters} "
+          f"(warm-up {sum(i for _, i in solves)}), bound of the frame's solves {cg_frame_bound:.4f} ms; "
+          "per level, coarse to fine (shape: solves, iterations): "
+          + "; ".join(f"{h}x{w}: {k}, {i}" for (h, w), k, i in runs))
+    check(abs(aae - t_aae) <= g_aae and abs(aepe - t_aepe) <= g_aepe, f"{name}: accuracy outside the gate")
+    check(launches["cg"] == len(solves) and launches["cg"] > 0 and launches["rof"] == 1 and launches["wmedian"] == 0,
+          f"{name}: unexpected launch counts {launches} ({len(solves)} solves in the warm-up frame)")
+    check(by_path["cg resident"] == launches["cg"] and by_path["rof resident"] == 1, f"{name}: a solve left the resident path")
+    check(cg_iters == sum(i for _, i in solves), f"{name}: CG iterations differ between two frames")
+    if name != "hs":
+        check(len(solves) == 90, f"{name}: {len(solves)} PCG solves in a frame, expected 90")
+
+    ev_ms, host_ms = [], []
+    for _ in range(LATENCY_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        estimate_flow(rgb1, rgb2, name, PATH_PARAMS, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        ev_ms.append(start.elapsed_time(end))
+    frame_ms = statistics.median(ev_ms)
+    print(f"{name}: per-frame latency, median of {LATENCY_RUNS} warm runs: {frame_ms:.2f} ms (CUDA events; "
+          f"runs {', '.join(f'{x:.2f}' for x in ev_ms)}), {statistics.median(host_ms):.2f} ms (host clock)  [{card}]")
+    return launches, kept, frame_ms
+
+
+def phase_cg_finest(torch, dev, card, recorded):
+    """classic++'s last 10 solves (the finest level of the last GNC stage, rtol
+    1e-7, maxiter 1000) against the plain twin, as phase 5 holds them: within
+    1e-5 x scale of the float32 twin or of the twin with double sums.  Equal
+    iterations are not required (the sums' types differ); the residual must
+    be within 10 x rtol or twice the float32 twin's."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply
+
+    def residual(sysm, x):
+        b = torch.stack([sysm.b_u, sysm.b_v], -1).double()
+        return float(torch.linalg.norm(system_apply(FlowSystem(*[f.double() for f in sysm]), x.double()) - b)
+                     / torch.linalg.norm(b))
+
+    check(len(recorded) == 10, f"recorded {len(recorded)} classic++ solves, expected 10")
+    total_ms = 0.0
+    for k, (sysm, rtol, maxiter) in enumerate(recorded):
+        H, W = sysm.a11.shape
+        x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
+        it_k = cg_kernel.iteration_counts(dev)[0]
+        x_t, it_t = cg_twin(torch, sysm, rtol, maxiter)
+        x_d, it_d = cg_twin(torch, sysm, rtol, maxiter, sums=torch.float64)
+        limit = 1e-5 * max(float(x_t.abs().max()), 1.0)
+        err, err_d = (float((x_k - x).abs().max()) for x in (x_t, x_d))
+        res, res_t = residual(sysm, x_k), residual(sysm, x_t)
+        ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 3)
+        total_ms += ms
+        print(f"cg classic++ finest system {k + 1} {H}x{W} rtol {rtol:g}: iterations kernel {it_k} / plain {it_t} / "
+              f"plain, double sums {it_d}; max|dx| / limit against the plain twin {err / limit:.3f}, against it with "
+              f"double sums {err_d / limit:.3f}; relative residual kernel {res:.3e}, plain twin {res_t:.3e}; "
+              f"{ms:.3f} ms ({1e3 * ms / max(it_k, 1):.2f} us an iteration)  [{card}]")
+        check(min(err, err_d) <= limit and res <= max(10 * rtol, 2 * res_t),
+              f"cg classic++ system {k + 1}: max|dx| {err:.3e}, {err_d:.3e} with double sums (limit {limit:.3e}); "
+              f"residual {res:.3e} (twin {res_t:.3e})")
+    print(f"cg classic++, the 10 finest solves one by one: {total_ms:.3f} ms  [{card}]")
+
+
+def phase_plain_ops(torch, dev, card):
+    """The median filter and the B-spline prefilter (plain PyTorch on every
+    path) at 388x584 on the card: equal to the CPU (the median bit for bit,
+    the prefilter's float32 products within 1e-5 of float64), one call's time."""
+    from optical_flow_tpu_torch.methods.base import median_pair
+    from optical_flow_tpu_torch.ops.filters import median_filter2d
+    from optical_flow_tpu_torch.ops.interp import spline_coeffs_2d
+
+    rng = np.random.default_rng(SEED + 3)
+    uv_np = rng.standard_normal((388, 584, 2)).astype(np.float32)
+    uv_np[rng.uniform(size=uv_np.shape) < 1e-3] = np.nan
+    uv = torch.as_tensor(uv_np, device=dev)
+    out = median_pair(uv, (5, 5)).cpu()
+    ref = median_pair(torch.as_tensor(uv_np), (5, 5))
+    same = bool(torch.equal(out.isnan(), ref.isnan()) and torch.equal(out.nan_to_num(), ref.nan_to_num()))
+    pair_ms = cuda_ms(torch, lambda: median_pair(uv, (5, 5)), 20)
+    plane_ms = cuda_ms(torch, lambda: median_filter2d(uv[..., 0], 5), 20)
+    # bound of the pair: each field read once and written once; a sort's
+    # K2 log2 K2 compares a pixel and field, whatever the method
+    n = uv.numel()
+    b = bound(n * 25 * math.log2(25), 8 * n)
+    print(f"median_filter2d 5x5 at 388x584 on the card: equal to the CPU bit for bit (NaNs included): {same}; "
+          f"one call on the flow pair {pair_ms:.3f} ms (bound {b['bound_ms']:.4f} ms, {b['bound_by']}), "
+          f"on one plane {plane_ms:.3f} ms  [{card}]")
+    check(same, "median filter differs between the card and the CPU")
+
+    tables_np = rng.uniform(0, 255, (3, 388, 584)).astype(np.float32)
+    tables = torch.as_tensor(tables_np, device=dev)
+    coeffs = spline_coeffs_2d(tables).cpu().double()
+    ref = spline_coeffs_2d(torch.as_tensor(tables_np, dtype=torch.float64))
+    err = float(((coeffs - ref).abs() / ref.abs().max()).max())
+    spline_ms = cuda_ms(torch, lambda: spline_coeffs_2d(tables), 20)
+    K, H, W = tables.shape
+    b = bound(2 * K * (H * H * W + H * W * W), 4 * (2 * K * H * W + H * H + W * W))
+    print(f"spline_coeffs_2d at 3x388x584 (one level's im2, I2x, I2y) on the card: max |d| / max |c| {err:.2e} "
+          f"against float64 (limit 1e-5), one call {spline_ms:.3f} ms (bound {b['bound_ms']:.4f} ms, "
+          f"{b['bound_by']})  [{card}]")
+    check(err <= 1e-5, "B-spline prefilter outside 1e-5 of float64 on the card")
 
 
 def main():
@@ -713,6 +943,15 @@ def main():
         results["cg"].update(phase_cg_levels(torch, dev, card, recorded_cg))
         del recorded_cg
         phase_profile(torch, dev, card, rgb1, rgb2, frame_ms)
+        launches_by_path = {"classic+nl-fast": launches}
+        for name in PATH_GATES:
+            keep = 10 if name == "classic++" else 0
+            launches_by_path[name], recorded_cg, path_ms = phase_path(torch, dev, card, name, rgb1, rgb2, tu, tv, keep)
+            if name == "classic++":
+                phase_cg_finest(torch, dev, card, recorded_cg)
+                del recorded_cg
+                phase_profile(torch, dev, card, rgb1, rgb2, path_ms, "classic++", PATH_PARAMS)
+        phase_plain_ops(torch, dev, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -723,7 +962,9 @@ def main():
         "rof": ("optical_flow_tpu_torch/csrc/rof.cu", "optical_flow_tpu/ops/pallas/rof_kernel.py:75"),
     }
     kernels = [
-        {"name": name, "route": "cuda", "source": src, "replaces": rep, "launches": launches[name],
+        {"name": name, "route": "cuda", "source": src, "replaces": rep,
+         "launches": sum(counts[name] for counts in launches_by_path.values()),
+         "launches_by_path": {path: counts[name] for path, counts in launches_by_path.items()},
          # no one PyTorch call computes any of the three functions
          **results[name], "library_ms": None}
         for name, (src, rep) in meta.items()

@@ -1,9 +1,9 @@
 """Method presets (port of ``optical_flow_tpu/config.py``).
 
-The classic+nl family is ported: ``classic+nl``, ``classic+nl-fast`` and
-``classic+nl-full``, with the JAX table's constants.  Every other preset name
-of the JAX package (and the ``classic-l`` alias) raises
-``NotImplementedError`` naming the ROADMAP item that ports it.
+The Classic+NL, BA and Horn–Schunck families are ported with the JAX
+table's constants, and the ``classic-l`` alias of ``ba``.  ``classic-c-a``
+(alt-BA) raises ``NotImplementedError`` naming the ROADMAP item that
+ports it.
 """
 from __future__ import annotations
 
@@ -14,10 +14,35 @@ from optical_flow_tpu_torch.ops.penalties import Robust
 MEDIAN_FILTER_SIZE = [5, 5]
 
 
+def _penalties(name, spatial, data):
+    """The three robust-penalty slots: two spatial (u, v) + one data term."""
+
+    def r(p):
+        return Robust(name, p if isinstance(p, tuple) else (p,))
+
+    return {
+        "rho_spatial_u": [r(spatial), r(spatial)],
+        "rho_spatial_v": [r(spatial), r(spatial)],
+        "rho_data": r(data),
+    }
+
+
 def _classic_nl():
     from optical_flow_tpu_torch.methods.classic_nl import ClassicNLOpticalFlow
 
     return ClassicNLOpticalFlow()
+
+
+def _hs():
+    from optical_flow_tpu_torch.methods.hs import HSOpticalFlow
+
+    return HSOpticalFlow()
+
+
+def _ba():
+    from optical_flow_tpu_torch.methods.ba import BAOpticalFlow
+
+    return BAOpticalFlow()
 
 
 # name -> (constructor, base preset name or None, settings factory)
@@ -42,19 +67,80 @@ _PRESETS = {
         lambda: {"max_iters": 3, "gnc_iters": 2, "display": True},
     ),
     "classic+nl-full": (_classic_nl, "classic+nl", lambda: {"fullVersion": True}),
+    "hs-brightness": (
+        _hs,
+        None,
+        lambda: {"median_filter_size": MEDIAN_FILTER_SIZE, "lambda_": 10, "lambda_q": 10},
+    ),
+    "hs": (
+        _hs,
+        None,
+        lambda: {
+            "median_filter_size": MEDIAN_FILTER_SIZE,
+            "texture": True,
+            "lambda_": 40,
+            "lambda_q": 40,
+            "display": True,
+        },
+    ),
+    "ba-brightness": (
+        _ba,
+        None,
+        lambda: {
+            "median_filter_size": MEDIAN_FILTER_SIZE,
+            "lambda_": 0.045,
+            "lambda_q": 0.045,
+            **_penalties("lorentzian", 0.1, 3.5),
+        },
+    ),
+    "ba": (
+        _ba,
+        "ba-brightness",
+        lambda: {
+            "texture": True,
+            "lambda_": 0.06,
+            "lambda_q": 0.06,
+            **_penalties("lorentzian", 0.03, 1.5),
+        },
+    ),
+    "classic-c-brightness": (
+        _ba,
+        None,
+        lambda: {
+            "median_filter_size": MEDIAN_FILTER_SIZE,
+            "texture": False,
+            "lambda_": 3,
+            "lambda_q": 3,
+            **_penalties("charbonnier", 1e-3, 1e-3),
+        },
+    ),
+    "classic-c": (
+        _ba,
+        "classic-c-brightness",
+        lambda: {"texture": True, "lambda_": 5, "lambda_q": 5},
+    ),
+    "classic++": (
+        _ba,
+        None,
+        lambda: {
+            "median_filter_size": MEDIAN_FILTER_SIZE,
+            "texture": True,
+            "interpolation_method": "bi-cubic",
+            "lambda_": 3,
+            "lambda_q": 3,
+            **_penalties("generalized_charbonnier", (1e-3, 0.45), (1e-3, 0.45)),
+        },
+    ),
 }
 
+_ALIASES = {"classic-l": "ba"}
+
 _NOT_YET_PORTED = {
-    "hs-brightness": "ROADMAP queue 1, item 10 (other method families: hs)",
-    "hs": "ROADMAP queue 1, item 10 (other method families: hs)",
-    "ba-brightness": "ROADMAP queue 1, item 10 (other method families: BA)",
-    "ba": "ROADMAP queue 1, item 10 (other method families: BA)",
-    "classic-l": "ROADMAP queue 1, item 10 (other method families: BA, alias of 'ba')",
-    "classic-c-brightness": "ROADMAP queue 1, item 10 (other method families: BA)",
-    "classic-c": "ROADMAP queue 1, item 10 (other method families: BA)",
-    "classic++": "ROADMAP queue 1, item 10 (other method families: BA + 'cubic' warp)",
-    "classic-c-a": "ROADMAP queue 1, item 10 (other method families: alt-BA)",
+    "classic-c-a": "ROADMAP queue 1, item 10 (alt-BA: denoise_LO, add_coupling and guard_flow)",
 }
+
+# the JAX package's method classes, by name, for ``method_from_state``
+_CLASSES = {"ClassicNLOpticalFlow": _classic_nl, "BAOpticalFlow": _ba, "HSOpticalFlow": _hs}
 
 # Attributes of the JAX method object that drive JAX-only machinery (device
 # meshes, jit fusion, per-level checkpoint callbacks).  ``method_from_state``
@@ -68,18 +154,23 @@ JAX_ONLY_DEFAULTS = {
 }
 
 
+def available_methods():
+    """All preset names of the JAX package, aliases included (``classic-c-a`` raises on load)."""
+    return sorted([*_PRESETS, *_NOT_YET_PORTED]) + sorted(_ALIASES)
+
+
 def load_of_method(method: str):
     """Load a pre-configured optical flow method by name."""
-    if method in _NOT_YET_PORTED:
+    name = _ALIASES.get(method, method)
+    if name in _NOT_YET_PORTED:
         raise NotImplementedError(
-            f"method {method!r} is not ported yet: {_NOT_YET_PORTED[method]}"
+            f"method {method!r} is not ported yet: {_NOT_YET_PORTED[name]}"
         )
-    if method not in _PRESETS:
+    if name not in _PRESETS:
         raise ValueError(f"Unknown optical flow method: '{method}'")
-    ctor = _PRESETS[method][0]
-    ope = ctor()
+    ope = _PRESETS[name][0]()
     chain = []
-    cur = method
+    cur = name
     while cur is not None:
         chain.append(_PRESETS[cur][2])
         cur = _PRESETS[cur][1]
@@ -95,14 +186,19 @@ def method_from_state(state: dict):
     ``state`` maps attribute names to plain Python / numpy values, as read
     from ``vars(optical_flow_tpu.config.load_of_method(name))``, with each
     robust penalty given as ``(name, params)`` and ``dtype`` as a dtype name
-    (``"float32"``).  Unknown attributes raise ``KeyError``; JAX-only ones
-    raise ``ValueError`` unless they hold their inert default.
+    (``"float32"``).  ``state["__class__"]`` names the JAX object's class
+    (``"ClassicNLOpticalFlow"``, ``"BAOpticalFlow"`` or ``"HSOpticalFlow"``;
+    Classic+NL when absent), and the port builds its counterpart.  Unknown
+    attributes and classes raise ``KeyError``; JAX-only attributes raise
+    ``ValueError`` unless they hold their inert default.
     """
     import torch
 
-    from optical_flow_tpu_torch.methods.classic_nl import ClassicNLOpticalFlow
-
-    ope = ClassicNLOpticalFlow()
+    state = dict(state)
+    cls = state.pop("__class__", "ClassicNLOpticalFlow")
+    if cls not in _CLASSES:
+        raise KeyError(f"no port of method class {cls!r}")
+    ope = _CLASSES[cls]()
     for key, val in state.items():
         if key in JAX_ONLY_DEFAULTS:
             if val != JAX_ONLY_DEFAULTS[key]:

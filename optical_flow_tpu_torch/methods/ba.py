@@ -1,8 +1,12 @@
-"""The pieces of Black–Anandan IRLS that Classic+NL uses (port of parts of ``optical_flow_tpu/methods/ba.py``).
+"""Black–Anandan optical flow: robust IRLS with GNC (port of ``optical_flow_tpu/methods/ba.py``).
 
-BA's own level program and presets wait for ROADMAP queue 1, item 10; this
-module carries the per-level configuration, the blended IRLS solve, the
-preprocessing and the GNC schedule that Classic+NL inherits.
+Each warp iteration of a pyramid level builds two IRLS systems (quadratic
+and robust), blends them by the GNC alpha, solves the blend (whole-PCG
+kernel), clips the update to ±1 and median-filters the flow through the
+duv trick.  The schedule is ``gnc_iters`` GNC stages, the first over the
+2.0-spaced pyramid, the others over the 1.25-spaced one, coarse to fine.
+Classic+NL (``classic_nl.py``) inherits the settings, the blended solve,
+the preprocessing and the GNC schedule.
 """
 from __future__ import annotations
 
@@ -12,11 +16,16 @@ from typing import Optional, Tuple
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.methods.base import BaseOpticalFlow
+from optical_flow_tpu_torch.methods.base import BaseOpticalFlow, median_pair
+from optical_flow_tpu_torch.ops.derivatives import precompute_warp, warp_deriv
+from optical_flow_tpu_torch.ops.filters import correlate2d_multi
 from optical_flow_tpu_torch.ops.penalties import Robust
+from optical_flow_tpu_torch.ops.pyramid import auto_pyramid_levels, build_pyramid, pyramid_shapes
+from optical_flow_tpu_torch.ops.resample import resample_flow
 from optical_flow_tpu_torch.ops.rof import structure_texture_decomposition_rof
 from optical_flow_tpu_torch.ops.stencil import blend_systems, build_irls_system
 from optical_flow_tpu_torch.solvers.cg import solve_flow_system
+from optical_flow_tpu_torch.utils.compat import fspecial_gaussian, scale_image
 
 
 @dataclasses.dataclass(frozen=True)
@@ -56,23 +65,105 @@ def _blended_solve(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
     return x
 
 
+def ba_level_step(cfg: IRLSLevelConfig, images, uv, alpha):
+    """One pyramid level of BA IRLS: ``max_iters`` warp iterations."""
+    pre = precompute_warp(images, cfg.interp, np.array(cfg.deriv_filter), cfg.blend)
+    for _ in range(cfg.max_iters):
+        It, Ix, Iy = warp_deriv(pre, uv)
+        duv = torch.zeros_like(uv)
+        for _j in range(cfg.max_linear):
+            duv = _blended_solve(cfg, uv, duv, It, Ix, Iy, alpha)
+            if cfg.median_filter_size is not None:
+                # the duv trick; this order of operations is the JAX package's
+                duv = median_pair(uv + duv, cfg.median_filter_size) - uv
+        uv = uv + duv
+    return uv
+
+
+@dataclasses.dataclass(frozen=True)
+class BAFlowPlan:
+    """Static whole-flow schedule: GNC stages x pyramid levels."""
+
+    preprocess: str  # 'texture' | 'fc' | 'scale'
+    alp: float
+    levels: int
+    spacing: float
+    gnc_levels: int
+    gnc_spacing: float
+    shapes: Tuple[Tuple[int, int], ...]
+    gnc_shapes: Tuple[Tuple[int, int], ...]
+    stages: Tuple[Tuple[IRLSLevelConfig, float], ...]  # (cfg, alpha) per stage
+
+
 def _preprocess_traced(kind: str, images, alp: float):
-    """The level pyramids' input: the ROF texture of the gray pair."""
+    """The level pyramids' input: the ROF texture, a Gaussian high-pass, or a rescale to [0, 255]."""
     if kind == "texture":
         return structure_texture_decomposition_rof(images, 1.0 / 8, 100, alp)
-    raise NotImplementedError(f"preprocessing {kind!r} is not ported yet (ROADMAP queue 1, item 10)")
+    if kind == "fc":
+        hp = images - alp * correlate2d_multi(images, fspecial_gaussian(5, 1.5), "reflect")
+        return scale_image(hp, 0, 255)
+    return scale_image(images, 0, 255)
+
+
+def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False):
+    """The whole GNC + coarse-to-fine BA flow."""
+    proc = _preprocess_traced(plan.preprocess, images, plan.alp)
+    pyramid = build_pyramid(proc, plan.levels, plan.spacing)
+    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing)
+    for stage_idx, (cfg, alpha) in enumerate(plan.stages):
+        if display:
+            print(f"GNC stage: {stage_idx + 1}")
+        if stage_idx == 0:
+            levels, cur, shapes = plan.levels, pyramid, plan.shapes
+        else:
+            levels, cur, shapes = plan.gnc_levels, gnc_pyramid, plan.gnc_shapes
+        for level in range(levels - 1, -1, -1):
+            if display:
+                print(f"  Pyramid level: {level + 1}")
+            uv = resample_flow(uv, shapes[level])
+            uv = ba_level_step(cfg, cur[level], uv, alpha)
+    return uv
 
 
 class BAOpticalFlow(BaseOpticalFlow):
-    """IRLS settings and schedule shared by the BA family (Classic+NL included).
+    """Black & Anandan optical flow with robust estimation and GNC.
 
-    Subclasses supply ``_quadratic_relaxation`` (the GNC stage-1 penalties).
+    Classic+NL subclasses it with its own settings and relaxation.
     """
 
+    def __init__(self):
+        super().__init__()
+        self.lambda_ = 1.0
+        self.lambda_q = 1.0
+        self.gnc_iters = 3
+        self.alpha = 1.0
+        self.max_iters = 10
+        self.max_linear = 1
+        self.pyramid_levels = 4
+        self.pyramid_spacing = 2.0
+        self.gnc_pyramid_levels = 2
+        self.gnc_pyramid_spacing = 1.25
+        self.texture = False
+        self.fc = False
+        self.solver = "backslash"
+        self.interpolation_method = "cubic"
+        self.limit_update = True
+        self.display = False
+
+        method = "lorentzian"
+        self.rho_spatial_u = [Robust(method, (0.03,)), Robust(method, (0.03,))]
+        self.rho_spatial_v = [Robust(method, (0.03,)), Robust(method, (0.03,))]
+        self.rho_data = Robust(method, (1.5,))
+
+    def _quadratic_relaxation(self):
+        """BA's GNC stage-1 penalties: unit spatial sigmas, data sigma ``σ_data / σ_spatial``."""
+        ta = self.rho_data.param[0] / self.rho_spatial_u[0].param[0]
+        qsu = (Robust("quadratic", (1.0,)), Robust("quadratic", (1.0,)))
+        qsv = (Robust("quadratic", (1.0,)), Robust("quadratic", (1.0,)))
+        qd = Robust("quadratic", (ta,))
+        return qsu, qsv, qd
+
     def _level_cfg(self, max_linear=None) -> IRLSLevelConfig:
-        mfs = self.median_filter_size
-        if mfs is not None:
-            mfs = (int(mfs[0]), int(mfs[1])) if hasattr(mfs, "__len__") else (int(mfs), int(mfs))
         if self.guard_flow is not None:
             raise NotImplementedError("guard_flow is not ported yet (ROADMAP queue 1, item 12)")
         qsu, qsv, qd = self._quadratic_relaxation()
@@ -87,7 +178,7 @@ class BAOpticalFlow(BaseOpticalFlow):
             qua_rho_data=qd,
             max_iters=int(self.max_iters),
             max_linear=int(self.max_linear if max_linear is None else max_linear),
-            median_filter_size=mfs,
+            median_filter_size=self._median_size(),
             limit_update=bool(self.limit_update),
             interp=str(self.interpolation_method),
             deriv_filter=tuple(float(v) for v in np.asarray(self.deriv_filter).ravel()),
@@ -108,3 +199,27 @@ class BAOpticalFlow(BaseOpticalFlow):
 
     def _preprocess_kind(self) -> str:
         return "texture" if self.texture else ("fc" if self.fc else "scale")
+
+    def _make_plan(self, sz) -> BAFlowPlan:
+        if self.auto_level:
+            self.pyramid_levels = auto_pyramid_levels(sz, self.pyramid_spacing)
+        stages = tuple(
+            (self._level_cfg(max_linear=1 if i == 0 else None), alpha) for i, alpha in enumerate(self._gnc_alphas())
+        )
+        return BAFlowPlan(
+            preprocess=self._preprocess_kind(),
+            alp=float(self.alp),
+            levels=int(self.pyramid_levels),
+            spacing=float(self.pyramid_spacing),
+            gnc_levels=int(self.gnc_pyramid_levels),
+            gnc_spacing=float(self.gnc_pyramid_spacing),
+            shapes=tuple(pyramid_shapes(sz, self.pyramid_levels, 1.0 / self.pyramid_spacing)),
+            gnc_shapes=tuple(pyramid_shapes(sz, self.gnc_pyramid_levels, 1.0 / self.gnc_pyramid_spacing)),
+            stages=stages,
+        )
+
+    def compute_flow(self, images, color=None):
+        """Flow (H, W, 2) from the (H, W, 2) gray pair; BA has no colour guide."""
+        sz = tuple(int(s) for s in images.shape[:2])
+        uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
+        return ba_flow_program(self._make_plan(sz), images, uv, display=bool(self.display))

@@ -10,7 +10,13 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.ops.derivatives import DEFAULT_DERIV_FILTER
+from optical_flow_tpu_torch.ops.filters import median_filter2d
 from optical_flow_tpu_torch.ops.penalties import Robust
+
+
+def median_pair(uv, size):
+    """Median-filter both fields of the (H, W, 2) flow (scipy-'reflect' boundary) in one call."""
+    return median_filter2d(uv.permute(2, 0, 1), size, "reflect").permute(1, 2, 0)
 
 
 class BaseOpticalFlow:
@@ -71,6 +77,13 @@ class BaseOpticalFlow:
             attr = "lambda_" if key == "lambda" else key
             if hasattr(self, attr):
                 setattr(self, attr, val)
+
+    def _median_size(self):
+        """``median_filter_size`` as an (h, w) tuple, or None."""
+        mfs = self.median_filter_size
+        if mfs is None:
+            return None
+        return (int(mfs[0]), int(mfs[1])) if hasattr(mfs, "__len__") else (int(mfs), int(mfs))
 
     def _solver_cfg(self):
         return (

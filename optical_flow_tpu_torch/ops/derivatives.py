@@ -1,11 +1,16 @@
-"""Warped spatiotemporal derivatives, ``'bi-cubic'`` path (port of ``optical_flow_tpu/ops/derivatives.py``).
+"""Warped spatiotemporal derivatives (port of ``optical_flow_tpu/ops/derivatives.py``).
 
-Classic+NL warps with the Hermite bicubic interpolator and its analytical
-spatial derivatives.  Everything that depends only on the images is built
-once per level (:func:`precompute_warp`); each warp iteration
-(:func:`warp_deriv`) is a 16-tap gather plus the polynomial evaluation.
-The ``'cubic'`` and ``'bi-linear'`` paths wait for the other method
-families (ROADMAP queue 1, item 10).
+Three interpolations, as in the JAX package:
+
+* ``'bi-cubic'`` (Classic+NL, classic++): the Hermite bicubic interpolator
+  and its analytical spatial derivatives;
+* ``'cubic'`` (BA, HS): cubic B-spline warping of frame 2 and of its two
+  derivative images, with the prefilter as two matrix products;
+* ``'bi-linear'``: 2×2 sampling of the same three images.
+
+Everything that depends only on the images is built once per level
+(:func:`precompute_warp`); each warp iteration (:func:`warp_deriv`) is a
+gather plus the interpolation's arithmetic.
 """
 from __future__ import annotations
 
@@ -16,6 +21,7 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.ops.filters import correlate2d
+from optical_flow_tpu_torch.ops.interp import sample_bilinear, sample_cubic_spline, spline_coeffs_2d
 
 DEFAULT_DERIV_FILTER = np.array([1.0, -8.0, 0.0, 8.0, -1.0]) / 12.0
 
@@ -49,19 +55,20 @@ HERMITE_CORNER_SHIFTS = ((0, 0), (0, 1), (1, 1), (1, 0))
 class WarpPrecompute(NamedTuple):
     """Flow-independent per-level tables for :func:`warp_deriv` (per-channel tuples)."""
 
+    method: str
     blend: float
     im1: tuple  # (H, W) per channel
     I1x: tuple
     I1y: tuple
-    hermite_tables: tuple  # (Z, DX, DY, DXY) of frame 2, per channel
+    # 'cubic': spline coefficients of (im2, I2x, I2y); 'bi-linear': the images; (3, H, W) per channel
+    warp_tables: tuple
+    hermite_tables: tuple  # 'bi-cubic': (Z, DX, DY, DXY) of frame 2, per channel
 
 
-def precompute_warp(images, interp_method: str = "bi-cubic", deriv_filter=None, blend: float = 0.5):
+def precompute_warp(images, interp_method: str = "cubic", deriv_filter=None, blend: float = 0.5):
     """Build all flow-independent tables for one pyramid level of (H, W, 2C) ``images``."""
-    if interp_method != "bi-cubic":
-        raise NotImplementedError(
-            f"interpolation {interp_method!r} is not ported yet (ROADMAP queue 1, item 10)"
-        )
+    if interp_method not in ("bi-cubic", "cubic", "bi-linear"):
+        raise ValueError(f"Unknown interpolation method: {interp_method}")
     if deriv_filter is None:
         deriv_filter = DEFAULT_DERIV_FILTER
     f = np.asarray(deriv_filter, dtype=np.float64)
@@ -70,15 +77,26 @@ def precompute_warp(images, interp_method: str = "bi-cubic", deriv_filter=None, 
     nc = images.shape[2] // 2
     im1s = tuple(images[:, :, c] for c in range(nc))
     im2s = tuple(images[:, :, nc + c] for c in range(nc))
+    warp_tables, hermite_tables = (), ()
+    if interp_method == "bi-cubic":
+        hermite_tables = tuple(
+            (c, correlate2d(c, fx, "reflect"), correlate2d(c, fy, "reflect"), correlate2d(c, fxy, "reflect"))
+            for c in im2s
+        )
+    else:
+        warp_tables = tuple(
+            torch.stack([c, correlate2d(c, fx, "reflect"), correlate2d(c, fy, "reflect")]) for c in im2s
+        )
+        if interp_method == "cubic":
+            warp_tables = tuple(spline_coeffs_2d(t) for t in warp_tables)
     return WarpPrecompute(
+        method=interp_method,
         blend=float(blend),
         im1=im1s,
         I1x=tuple(correlate2d(c, fx, "reflect") for c in im1s),
         I1y=tuple(correlate2d(c, fy, "reflect") for c in im1s),
-        hermite_tables=tuple(
-            (c, correlate2d(c, fx, "reflect"), correlate2d(c, fy, "reflect"), correlate2d(c, fxy, "reflect"))
-            for c in im2s
-        ),
+        warp_tables=warp_tables,
+        hermite_tables=hermite_tables,
     )
 
 
@@ -144,18 +162,29 @@ def warp_deriv(pre: WarpPrecompute, uv):
     )
     xq = xgrid + uv[:, :, 0]
     yq = ygrid + uv[:, :, 1]
+    if pre.method != "bi-cubic":
+        # the strictly-outside mask of the 'cubic' and 'bi-linear' routes; the
+        # Hermite route masks with its own, which counts x >= W-1 as outside
+        B = (xq > W - 1) | (xq < 0) | (yq > H - 1) | (yq < 0)
 
     blend = pre.blend
     Its, Ixs, Iys = [], [], []
     zero = torch.zeros((), dtype=uv.dtype, device=uv.device)
     for c in range(len(pre.im1)):
-        warp, wx, wy, oob = _hermite_bicubic(pre.hermite_tables[c], yq, xq)
+        if pre.method == "bi-cubic":
+            warp, wx, wy, mask = _hermite_bicubic(pre.hermite_tables[c], yq, xq)
+        elif pre.method == "cubic":
+            warp, wx, wy = sample_cubic_spline(pre.warp_tables[c], yq, xq)[0]
+            mask = B
+        else:
+            warp, wx, wy = (sample_bilinear(t, yq, xq, mode="nearest") for t in pre.warp_tables[c])
+            mask = B
         It = warp - pre.im1[c]
         Ix = blend * wx + (1 - blend) * pre.I1x[c]
         Iy = blend * wy + (1 - blend) * pre.I1y[c]
-        Its.append(torch.where(oob, zero, It))
-        Ixs.append(torch.where(oob, zero, Ix))
-        Iys.append(torch.where(oob, zero, Iy))
+        Its.append(torch.where(mask, zero, It))
+        Ixs.append(torch.where(mask, zero, Ix))
+        Iys.append(torch.where(mask, zero, Iy))
 
     if len(Its) == 1:
         return Its[0], Ixs[0], Iys[0]

@@ -1,8 +1,9 @@
-"""Small-stencil correlation filters (port of ``optical_flow_tpu/ops/filters.py``).
+"""Small-stencil correlation filters and the median filter (port of ``optical_flow_tpu/ops/filters.py``).
 
 A k×k correlation with a constant kernel is a sum of shifted multiplies over
 a padded array, as in the JAX package.  It deliberately does not become
-``conv2d``: cuDNN runs float32 convolutions in TF32 by default.
+``conv2d``: cuDNN runs float32 convolutions in TF32 by default.  The median
+filter stacks the k² window views and sorts them once.
 
 Boundary names follow scipy.ndimage: ``reflect`` repeats the edge value
 (numpy ``symmetric``), ``nearest`` clamps (numpy ``edge``) and ``mirror``
@@ -75,3 +76,32 @@ def correlate2d_multi(im, kernel, boundary: str = "reflect"):
     if im.ndim == 2:
         return correlate2d(im, kernel, boundary)
     return correlate2d(im.permute(2, 0, 1), kernel, boundary).permute(1, 2, 0)
+
+
+def median_filter2d(im, size, boundary: str = "reflect"):
+    """Median filter of the last two axes of ``im`` (..., H, W), window ``size`` (int or (h, w)).
+
+    The value of rank ``k²//2`` of each window, as
+    ``scipy.ndimage.median_filter(mode='reflect')`` and both routes of the
+    JAX package.  NaNs sort last.  For windows of at most 49 values the JAX
+    package selects through a pruned Batcher network after mapping NaN to
+    +inf, and maps a +inf result back to NaN; here the same scrub and
+    mapping surround one sort, whose selected value is the network's bit
+    for bit.  Larger windows sort the raw values, as there.
+    """
+    if isinstance(size, (tuple, list, np.ndarray)):
+        kh, kw = int(size[0]), int(size[1])
+    else:
+        kh = kw = int(size)
+    cy, cx = kh // 2, kw // 2
+    padded = pad2d(im, cy, kh - 1 - cy, cx, kw - 1 - cx, boundary)
+    H, W = im.shape[-2:]
+    n = kh * kw
+    scrub = n <= 49 and im.is_floating_point()
+    if scrub:
+        padded = torch.where(torch.isnan(padded), torch.inf, padded)
+    stack = torch.stack([padded[..., dy : dy + H, dx : dx + W] for dy in range(kh) for dx in range(kw)], dim=-1)
+    out = torch.sort(stack, dim=-1).values[..., n // 2]
+    if scrub:
+        out = torch.where(out == torch.inf, torch.nan, out)
+    return out

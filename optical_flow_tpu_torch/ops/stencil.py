@@ -141,3 +141,27 @@ def build_irls_system(uv, duv, It, Ix, Iy, rho_spatial_u, rho_spatial_v, rho_dat
     b_u = -weighted_laplacian_apply(wu_h, wu_v, u) - pp_d * Itx
     b_v = -weighted_laplacian_apply(wv_h, wv_v, v) - pp_d * Ity
     return FlowSystem(a11, a12, a22, wu_h, wu_v, wv_h, wv_v, b_u, b_v)
+
+
+def build_hs_system(uv, It, Ix, Iy, lam, sigmaD2, sigmaS2) -> FlowSystem:
+    """Horn–Schunck system: ``A = D / sigmaD2 + (lam / sigmaS2) blkdiag(L, L)``.
+
+    L is the Neumann graph Laplacian (uniform edge weights, zero in the last
+    column for ``wh`` and in the last row for ``wv``) and
+    ``b = -(lam / sigmaS2) L uv - [Itx; Ity] / sigmaD2``.
+    """
+    Ix2 = _channel_mean(Ix**2) / sigmaD2
+    Iy2 = _channel_mean(Iy**2) / sigmaD2
+    Ixy = _channel_mean(Ix * Iy) / sigmaD2
+    Itx = _channel_mean(It * Ix) / sigmaD2
+    Ity = _channel_mean(It * Iy) / sigmaD2
+
+    w_edge = lam / sigmaS2
+    wh = torch.full_like(Ix2, w_edge)
+    wh[:, -1] = 0.0
+    wv = torch.full_like(Ix2, w_edge)
+    wv[-1, :] = 0.0
+
+    b_u = -weighted_laplacian_apply(wh, wv, uv[:, :, 0]) - Itx
+    b_v = -weighted_laplacian_apply(wh, wv, uv[:, :, 1]) - Ity
+    return FlowSystem(Ix2, Ixy, Iy2, wh, wv, wh, wv, b_u, b_v)

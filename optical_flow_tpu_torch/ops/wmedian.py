@@ -13,7 +13,7 @@ from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import (
     wmedfilt_prepadded,
     wmedian,
 )
-from optical_flow_tpu_torch.ops.filters import pad2d
+from optical_flow_tpu_torch.ops.filters import median_filter2d, pad2d
 from optical_flow_tpu_torch.ops.interp import matlab_imresize_bilinear
 
 __all__ = ["_weighted_median_lastaxis", "denoise_color_weighted_medfilt2", "wmedfilt_prepadded"]
@@ -23,15 +23,15 @@ def denoise_color_weighted_medfilt2(uv, color_images, occ, area_hsz: int, mfsz, 
     """Weighted median filter of the (H, W, 2) flow guided by colour affinity.
 
     ``full_version`` is accepted for API parity and, as in the reference,
-    does not change the computation.  Without a guide the JAX package falls
-    back to a plain median filter; that branch is not on the ported path
-    and raises (ROADMAP queue 1, item 10).
+    does not change the computation.  Without a guide (``None``, or one
+    smaller than the flow, such as the presets' (1, 1, 3) placeholder) the
+    result is a plain median filter of size ``mfsz[0]`` on each field, with
+    scipy-'reflect' padding, as in the JAX package.
     """
     H, W = uv.shape[:2]
     if color_images is None or int(np.prod(color_images.shape[:2])) < H * W:
-        raise NotImplementedError(
-            "the no-guide plain-median fallback is not ported yet (ROADMAP queue 1, item 10)"
-        )
+        sz = int(mfsz[0]) if hasattr(mfsz, "__len__") else int(mfsz)
+        return median_filter2d(uv.permute(2, 0, 1), sz, "reflect").permute(1, 2, 0)
     if color_images.shape[0] != H or color_images.shape[1] != W:
         color_images = matlab_imresize_bilinear(color_images, (H, W))
     if color_images.ndim == 2:

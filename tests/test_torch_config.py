@@ -11,11 +11,12 @@ pytest.importorskip("jax")
 
 from torch_parity import jax_method_state  # noqa: E402
 
-PORTED = ["classic+nl", "classic+nl-fast", "classic+nl-full"]
-NOT_PORTED = [
+CLASSIC_NL = ["classic+nl", "classic+nl-fast", "classic+nl-full"]
+BA_HS = [
     "hs-brightness", "hs", "ba-brightness", "ba", "classic-l",
-    "classic-c-brightness", "classic-c", "classic++", "classic-c-a",
+    "classic-c-brightness", "classic-c", "classic++",
 ]
+PORTED = CLASSIC_NL + BA_HS
 
 
 def _plain(val):
@@ -38,6 +39,7 @@ def test_method_from_state_equals_load_of_method(name):
     state = jax_method_state(name)
     from_state = method_from_state(state)
     loaded = load_of_method(name)
+    assert type(from_state) is type(loaded) and type(loaded).__name__ == state["__class__"]
     assert set(vars(from_state)) == set(vars(loaded))
     for key in vars(loaded):
         assert _plain(getattr(from_state, key)) == _plain(getattr(loaded, key)), key
@@ -45,12 +47,13 @@ def test_method_from_state_equals_load_of_method(name):
     from optical_flow_tpu.config import load_of_method as load_jax
 
     jax_ope = load_jax(name)
-    for key in state:
+    assert set(state) - {"__class__"} == set(vars(jax_ope))
+    for key in vars(jax_ope):
         if key not in ("spatial_mesh", "spatial_halo", "checkpoint", "fuse", "images", "dtype"):
             assert _plain(getattr(loaded, key)) == _plain(getattr(jax_ope, key)), key
 
 
-@pytest.mark.parametrize("name", PORTED)
+@pytest.mark.parametrize("name", CLASSIC_NL)
 def test_level_configs_and_schedule_match_jax(name):
     from optical_flow_tpu.config import load_of_method as lj
     from optical_flow_tpu_torch.config import load_of_method as lp
@@ -81,14 +84,48 @@ def test_main_path_schedule_is_21_solves():
     assert plan.levels * cfg0.irls.max_iters + plan.gnc_levels * cfg1.irls.max_iters == 21
 
 
-@pytest.mark.parametrize("name", NOT_PORTED)
-def test_unported_presets_raise_with_roadmap_item(name):
-    from optical_flow_tpu.config import available_methods
+@pytest.mark.parametrize("name", BA_HS)
+def test_ba_hs_level_configs_and_schedule_match_jax(name):
+    from optical_flow_tpu.config import load_of_method as lj
+    from optical_flow_tpu_torch.config import load_of_method as lp
+
+    oj, op = lj(name), lp(name)
+    for o in (oj, op):
+        o.parse_input_parameter({"display": False})
+    for sz in ((388, 584), (48, 64)):
+        pj, pp = oj._make_plan(sz), op._make_plan(sz)
+        assert type(pp).__name__ == type(pj).__name__
+        if hasattr(pj, "stages"):  # BA
+            assert (pp.preprocess, pp.alp, pp.levels, pp.shapes, pp.gnc_levels, pp.gnc_shapes) == (
+                pj.preprocess, pj.alp, pj.levels, pj.shapes, pj.gnc_levels, pj.gnc_shapes)
+            assert [a for _, a in pp.stages] == [a for _, a in pj.stages]
+            cfgs = [(cp, cj) for (cp, _), (cj, _) in zip(pp.stages, pj.stages)]
+        else:  # HS
+            assert (pp.texture, pp.levels, pp.shapes, pp.final_median) == (pj.texture, pj.levels, pj.shapes, pj.final_median)
+            cfgs = [(pp.cfg, pj.cfg)]
+        for cp, cj in cfgs:
+            assert _plain(tuple(vars(cp).values())) == _plain(tuple(vars(cj).values()))
+
+
+def test_classic_pp_schedule_is_90_solves():
+    """classic++ at 584x388: 3 GNC stages over 5 + 2 + 2 levels, 10 warp iterations each."""
     from optical_flow_tpu_torch.config import load_of_method
 
-    assert name in available_methods()  # a real preset of the JAX package
+    plan = load_of_method("classic++")._make_plan((388, 584))
+    assert plan.levels == 5 and plan.gnc_levels == 2 and len(plan.stages) == 3
+    assert [c.max_iters for c, _ in plan.stages] == [10, 10, 10]
+    assert [c.max_linear for c, _ in plan.stages] == [1, 1, 1]
+    assert [c.solver[:1] + c.solver[3:5] for c, _ in plan.stages] == [("backslash", 1e-7, 1000)] * 3
+    assert (plan.levels + 2 * plan.gnc_levels) * 10 == 90
+
+
+def test_alt_ba_raises_with_roadmap_item():
+    from optical_flow_tpu.config import available_methods as aj
+    from optical_flow_tpu_torch.config import available_methods as ap, load_of_method
+
+    assert ap() == aj()  # every preset name of the JAX package, in its order
     with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        load_of_method(name)
+        load_of_method("classic-c-a")
 
 
 def test_method_from_state_rejects_what_it_cannot_carry():
@@ -98,6 +135,8 @@ def test_method_from_state_rejects_what_it_cannot_carry():
         method_from_state({"no_such_setting": 1})
     with pytest.raises(ValueError):
         method_from_state({"fuse": True})
+    with pytest.raises(KeyError, match="AltBAOpticalFlow"):
+        method_from_state({"__class__": "AltBAOpticalFlow"})
     with pytest.raises(ValueError, match="Unknown optical flow method"):
         from optical_flow_tpu_torch.config import load_of_method
 

@@ -81,11 +81,20 @@ def test_weighted_median_stable_ties(jnp):
     np.testing.assert_array_equal(n(mp(t(vals), t(wts))), [2.0, 5.0])
 
 
-def test_wmedian_no_guide_fallback_not_ported():
-    from optical_flow_tpu_torch.ops.wmedian import denoise_color_weighted_medfilt2
+@pytest.mark.parametrize("guide", ["none", "placeholder"])
+def test_wmedian_no_guide_fallback(jnp, rng, guide):
+    """Without a guide (None, or the presets' (1, 1, 3) placeholder) both
+    packages apply a plain median of size mfsz[0] with scipy-'reflect' padding."""
+    from optical_flow_tpu.ops.wmedian import denoise_color_weighted_medfilt2 as dj
+    from optical_flow_tpu_torch.ops.wmedian import denoise_color_weighted_medfilt2 as dp
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        denoise_color_weighted_medfilt2(t(np.zeros((8, 8, 2))), None, t(np.ones((8, 8))), 3, [5, 5], 7.0)
+    uv = rng.standard_normal((15, 21, 2))
+    uv[4, 6, 1] = np.nan
+    occ = rng.uniform(0.1, 1.0, (15, 21))
+    color = None if guide == "none" else np.ones((1, 1, 3))
+    out_p = dp(t(uv), None if color is None else t(color), t(occ), 7, [7, 5], 7.0)
+    out_j = dj(j(uv), None if color is None else j(color), j(occ), 7, [7, 5], 7.0)
+    np.testing.assert_array_equal(n(out_p), n(out_j))
 
 
 INT32_MIN, INT32_MAX = np.int32(np.iinfo(np.int32).min), np.int32(np.iinfo(np.int32).max)

@@ -184,11 +184,76 @@ def test_bicubic_warp_deriv(rng, nc):
     assert not n(out_p[0]).reshape(H, W, -1)[0, 0].any()
 
 
-def test_other_interpolations_not_ported():
+@pytest.mark.parametrize("nc", [1, 2])
+@pytest.mark.parametrize("method", ["cubic", "bi-linear"])
+def test_spline_and_bilinear_warp_deriv(rng, method, nc):
+    """The 'cubic' and 'bi-linear' routes mask with the strictly-outside mask
+    B: a point exactly on the last column is inside (the Hermite route's
+    mask counts it as out)."""
+    from optical_flow_tpu.ops.derivatives import precompute_warp as pj, warp_deriv as wj
+    from optical_flow_tpu_torch.ops.derivatives import precompute_warp as pp, warp_deriv as wp
+
+    H, W = 17, 23
+    images = rng.uniform(0, 255, (H, W, 2 * nc))
+    uv = 2.5 * rng.standard_normal((H, W, 2))
+    uv[0, 0] = [W - 1.0, 0.0]  # exactly on the last column: inside
+    uv[1, 1] = [-1.0, -1.0]  # exact grid point on the leading edge
+    uv[2, 2] = [-2.0 - 1e-9, 0.0]  # just outside the leading edge
+    out_p = wp(pp(t(images), method), t(uv))
+    out_j = wj(pj(j(images), method), j(uv))
+    for a, b in zip(out_p, out_j):
+        close(a, b, rtol=1e-10, atol=1e-9)
+    It = n(out_p[0]).reshape(H, W, -1)
+    assert It[0, 0].all() and not It[2, 2].any()
+
+
+def test_unknown_interpolation_raises():
     from optical_flow_tpu_torch.ops.derivatives import precompute_warp
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        precompute_warp(t(np.zeros((4, 4, 2))), "cubic")
+    with pytest.raises(ValueError, match="Unknown interpolation"):
+        precompute_warp(t(np.zeros((4, 4, 2))), "lanczos")
+
+
+def test_bspline_prefilter_matrix_equals_jax():
+    from optical_flow_tpu.ops.interp import bspline_prefilter_matrix as mj
+    from optical_flow_tpu_torch.ops.interp import bspline_prefilter_matrix as mp
+
+    for size in (1, 2, 5, 38, 97):
+        np.testing.assert_array_equal(mp(size), mj(size))
+
+
+@pytest.mark.parametrize("shape", [(12, 17), (1, 9), (30, 4)])
+def test_spline_coeffs_and_samples(rng, shape):
+    """Coefficients and samples to rtol 1e-10, points beyond both edges
+    included (their base index is clamped, their weights are not)."""
+    from optical_flow_tpu.ops.interp import sample_cubic_spline as sj, spline_coeffs_2d as cj
+    from optical_flow_tpu_torch.ops.interp import sample_cubic_spline as sp, spline_coeffs_2d as cp
+
+    H, W = shape
+    im = rng.uniform(0, 255, shape)
+    c_p, c_j = cp(t(im)), cj(j(im))
+    close(c_p, c_j, rtol=1e-10, atol=1e-10 * 255)
+    ys = rng.uniform(-3, H + 2, (8, 11))
+    xs = rng.uniform(-3, W + 2, (8, 11))
+    ys[0, :3] = [0.0, H - 1.0, -0.5]
+    xs[0, :3] = [W - 1.0, 0.0, W - 0.5]
+    (v_p, oob_p), (v_j, oob_j) = sp(c_p, t(ys), t(xs)), sj(c_j, j(ys), j(xs))
+    close(v_p, v_j, rtol=1e-10, atol=1e-10 * 255)
+    np.testing.assert_array_equal(n(oob_p), n(oob_j))
+    # a stack of planes samples each plane as one call would
+    v3, _ = sp(torch.stack([c_p, 2 * c_p]), t(ys), t(xs))
+    close(v3[1], 2 * n(v_p), rtol=1e-12, atol=1e-12)
+
+
+def test_spline_pad_is_numpy_reflect():
+    """The coefficients pad with numpy 'reflect' (no repeated edge), the
+    port's "mirror": a sample just inside the edge reads c[1] past it."""
+    from optical_flow_tpu.ops.interp import sample_cubic_spline as sj
+    from optical_flow_tpu_torch.ops.interp import sample_cubic_spline as sp
+
+    c = np.arange(20.0).reshape(4, 5) ** 2
+    ys, xs = np.full((1, 3), 1.5), np.array([[0.0, 0.25, 4.0]])
+    close(sp(t(c), t(ys), t(xs))[0], sj(j(c), j(ys), j(xs))[0], rtol=1e-12)
 
 
 # ----------------------------------------------------------------- stencil
@@ -227,22 +292,101 @@ def test_build_irls_system_blend_and_apply(rng, nc):
     )
 
 
-@pytest.mark.parametrize("name,params", [("quadratic", (0.03,)), ("generalized_charbonnier", (1e-3, 0.45))])
+PENALTY_CASES = [
+    ("quadratic", (0.03,)),
+    ("generalized_charbonnier", (1e-3, 0.45)),
+    ("lorentzian", (0.03,)),
+    ("charbonnier", (1e-3,)),
+    ("geman_mcclure", (0.5,)),
+    ("huber", (0.8,)),
+    ("tukey", (1.1,)),
+    ("gaussian", (0.7,)),
+    ("tdist", (3.0, 0.4)),
+    ("tdist_unnorm", (3.0, 0.4)),
+]
+
+
+@pytest.mark.parametrize("name,params", PENALTY_CASES)
 def test_penalties(rng, name, params):
+    """All ten penalties in their three modes, to rtol 1e-12; the inputs
+    straddle the thresholds of huber (sigma^2) and tukey (sigma)."""
+    from optical_flow_tpu.ops.penalties import PENALTIES
     from optical_flow_tpu.ops.penalties import Robust as RJ
     from optical_flow_tpu_torch.ops.penalties import Robust as RP
 
-    x = rng.standard_normal(50)
+    assert len(PENALTY_CASES) == len(PENALTIES)
+    x = np.concatenate([rng.standard_normal(50), [0.0, 0.64, -0.64, 1.1, -1.1, 1e-4]])
     rp, rj = RP(name, params), RJ(name, params)
     for f in ("evaluate", "deriv", "deriv_over_x"):
-        close(getattr(rp, f)(t(x)), getattr(rj, f)(j(x)), rtol=1e-12)
+        close(getattr(rp, f)(t(x)), getattr(rj, f)(j(x)), rtol=1e-12, atol=1e-300)
 
 
-def test_unported_penalty_raises():
-    from optical_flow_tpu_torch.ops.penalties import Robust
+def test_unimplemented_penalties_raise():
+    """``mixture`` and ``spline_penalty`` are named but unimplemented, as in the JAX package."""
+    from optical_flow_tpu.ops.penalties import Robust as RJ
+    from optical_flow_tpu_torch.ops.penalties import Robust as RP
 
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        Robust("lorentzian", (0.03,))
+    for name in ("mixture", "spline_penalty"):
+        for R in (RP, RJ):
+            with pytest.raises(NotImplementedError):
+                R(name, (1.0,))
+    with pytest.raises(ValueError, match="Unknown penalty"):
+        RP("cauchy", (1.0,))
+
+
+def test_build_hs_system(rng):
+    from optical_flow_tpu.ops import stencil as SJ
+    from optical_flow_tpu_torch.ops import stencil as SP
+
+    for nc in (1, 3):
+        uv, _, It, Ix, Iy = _irls_inputs(rng, nc=nc)
+        sys_p = SP.build_hs_system(t(uv), t(It), t(Ix), t(Iy), 40.0, 1.0, 2.0)
+        sys_j = SJ.build_hs_system(j(uv), j(It), j(Ix), j(Iy), 40.0, 1.0, 2.0)
+        for a, b in zip(sys_p, sys_j):
+            close(a, b, rtol=1e-12, atol=1e-12)
+        assert not n(sys_p.wu_h)[:, -1].any() and not n(sys_p.wu_v)[-1, :].any()
+        assert np.array_equal(n(sys_p.a12), n(SP._channel_mean(t(Ix) * t(Iy))) / 1.0)
+
+
+# ------------------------------------------------------------------ median
+
+
+@pytest.mark.parametrize("with_nans", [False, True])
+@pytest.mark.parametrize("size", [3, 5, 7, 9, (3, 5)])
+def test_median_filter2d_equals_jax(rng, size, with_nans):
+    """Equal to the JAX median bit for bit, NaN positions included: the
+    Batcher network (at most 49 values) and the sort (more).  A window that
+    is more than half NaN gives NaN; fewer NaNs sort past every value."""
+    from optical_flow_tpu.ops.filters import median_filter2d as mj
+    from optical_flow_tpu_torch.ops.filters import median_filter2d as mp
+
+    im = rng.standard_normal((19, 23))
+    im[3, 4] = im[3, 5]  # a tie
+    if with_nans:
+        im[rng.uniform(size=im.shape) < 0.15] = np.nan
+        im[8:16, 8:16] = np.nan  # windows that are mostly NaN
+    out_p, out_j = n(mp(t(im), size)), n(mj(j(im), size))
+    np.testing.assert_array_equal(out_p, out_j)  # NaN positions equal too
+    assert np.isnan(out_p).any() == with_nans
+    if not with_nans:
+        from scipy.ndimage import median_filter
+
+        np.testing.assert_array_equal(out_p, median_filter(im, size=size, mode="reflect"))
+    # a leading batch axis filters each plane as one call would
+    stack = n(mp(t(np.stack([im, -im])), size))
+    np.testing.assert_array_equal(stack[0], out_p)
+
+
+def test_median_filter2d_float32_and_pair(rng):
+    from optical_flow_tpu.methods.base import jit_median_pair
+    from optical_flow_tpu_torch.methods.base import median_pair
+
+    uv = rng.standard_normal((21, 30, 2)).astype(np.float32)
+    uv[5, 5, 0] = np.nan
+    out_p = n(median_pair(t(uv, torch.float32), (5, 5)))
+    out_j = n(jit_median_pair(jnp.asarray(uv), (5, 5)))
+    assert out_p.dtype == np.float32
+    np.testing.assert_array_equal(out_p, out_j)
 
 
 # --------------------------------------------------------------- occlusion

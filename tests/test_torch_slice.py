@@ -61,4 +61,4 @@ def test_device_is_explicit_and_out_dtype():
     uv = estimate_flow(a, b, "classic+nl-fast", {**MAIN_PATH_PARAMS, "out_dtype": "float16"}, device="cpu")
     assert uv.dtype == torch.float16 and uv.device.type == "cpu" and uv.shape == (24, 32, 2)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        estimate_flow(a, b, "hs", device="cpu")
+        estimate_flow(a, b, "classic-c-a", device="cpu")

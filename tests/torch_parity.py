@@ -67,12 +67,14 @@ def port_flow(a, b, dtype):
 
 
 def jax_method_state(name):
-    """The JAX preset's attributes as plain values, for ``method_from_state``."""
+    """The JAX preset's attributes as plain values, and its class name under
+    ``"__class__"``, for ``method_from_state``."""
     from optical_flow_tpu.config import load_of_method
     from optical_flow_tpu.ops.penalties import Robust
 
-    state = {}
-    for key, val in vars(load_of_method(name)).items():
+    ope = load_of_method(name)
+    state = {"__class__": type(ope).__name__}
+    for key, val in vars(ope).items():
         if isinstance(val, Robust):
             val = (val.name, val.params)
         elif isinstance(val, list) and val and isinstance(val[0], Robust):
@@ -81,3 +83,18 @@ def jax_method_state(name):
             val = np.dtype(val).name
         state[key] = val
     return state
+
+
+def flows(a, b, method, params):
+    """(JAX flow, port flow on the CPU) of the pair, as numpy; ``params`` may
+    name ``"dtype"`` as a string (``"float64"``), read by each package."""
+    import jax.numpy as jnp
+    import torch
+
+    from optical_flow_tpu.interface import estimate_flow as ej
+    from optical_flow_tpu_torch import estimate_flow as ep
+
+    dt = params.get("dtype", "float64")
+    uv_j = np.asarray(ej(a, b, method, {**params, "dtype": getattr(jnp, dt)}))
+    uv_p = ep(a, b, method, {**params, "dtype": getattr(torch, dt)}, device="cpu").numpy()
+    return uv_j, uv_p
