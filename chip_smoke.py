@@ -40,7 +40,23 @@ Phases, each printing its results; any failed check exits non-zero:
    of the last GNC stage against the plain twin and one profiled frame
    with the median filter as its own row;
 8. the plain-PyTorch median filter and B-spline prefilter on the card at
-   388x584: equal to their CPU results, and one call's time.
+   388x584: equal to their CPU results, and one call's time;
+9. the alt-BA and SOR paths on RubberWhale 584x388, as phase 7 drives the
+   others: ``classic-c-a`` at the preset's defaults (the guard on at 1e9:
+   finite and within 1e9, no accuracy gate since the trajectory diverges by
+   design; the levels the guard rolled back, from a device tally read once
+   after the frame; 90 PCG solves, 1 ROF call; one profiled frame with the
+   median filter as its own row), its stable configuration
+   ``{"lambda2": 0.01, "max_iters": 5, "gnc_iters": 2}`` (35 solves; AAE /
+   AEPE against the JAX package's float32 CPU values) and ``hs`` with
+   ``{"solver": "sor"}`` (SOR sweeps per solve by level and host reads a
+   frame; AAE / AEPE against the JAX package's);
+10. ``classic-c-a`` with ``{"guard_flow": None}``: the flow must blow up, as
+    the JAX package's does, and the frame's first PCG system with a
+    non-finite plane is held kernel against twin (iterations, the NaN and
+    inf entries of x, the finite entries);
+11. ``hs`` with ``{"guard_flow": 1e9}`` equal to ``hs`` without it, bit for
+    bit.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -51,7 +67,8 @@ median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
 ``frame_sum_*`` (the 21 calls summed); PCG's and ROF's add the previous
 (streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
-of each path driven (counts set to 0 just before it).  Without a CUDA device, or
+of each path driven (counts set to 0 just before it), the paths of phases
+9-11 included.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -81,6 +98,18 @@ PATH_GATES = {
     "ba": ((2.8129, 0.08564), (0.2, 0.02)),
     "hs": ((3.361, 0.10439), (0.2, 0.01)),
 }
+# alt-BA and SOR, against the JAX package's estimate_flow on full RubberWhale
+# in float32 on the CPU: classic-c-a at the preset's defaults diverges by design
+# and only the guard keeps it finite (no accuracy gate); its stable
+# configuration, and hs with SOR, have the gate widths of ba and hs
+ALT_JAX = (90.23, 3.40e5)
+ALT_UNGUARDED = {"display": False, "guard_flow": None}
+ALT_STABLE = {"display": False, "lambda2": 0.01, "max_iters": 5, "gnc_iters": 2}
+NEW_PATHS = [  # (label, method, params, gate, PCG solves a frame)
+    ("classic-c-a", "classic-c-a", PATH_PARAMS, None, 90),
+    ("classic-c-a stable", "classic-c-a", ALT_STABLE, ((7.820, 0.2717), (0.2, 0.02)), 35),
+    ("hs sor", "hs", {"display": False, "solver": "sor"}, ((3.3592, 0.10434), (0.2, 0.01)), 0),
+]
 LATENCY_RUNS = 3
 SEED = 0
 # an H100 SXM's published peaks (float32 outside the tensor cores; HBM3)
@@ -672,21 +701,26 @@ def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms, method="classic+nl-fas
     """One warm frame under torch.profiler: device busy time (the union of the
     device intervals), idle share, and device time by kernel; the plain
     median filter's device time (every kernel launched inside a
-    ``median_pair`` call) is its own row."""
+    ``median_pair`` call, or a median pass of Li–Osher denoising) is its own
+    row."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
     from optical_flow_tpu_torch import estimate_flow
     from optical_flow_tpu_torch.methods import ba as ba_mod, hs as hs_mod
+    from optical_flow_tpu_torch.ops import denoise as denoise_mod
 
-    pair = ba_mod.median_pair
+    def labelled(fn):
+        def median(*args):
+            with record_function("median_filter2d"):
+                return fn(*args)
+        return median
 
-    def labelled(uv, size):
-        with record_function("median_filter2d"):
-            return pair(uv, size)
-
+    saved = [(m, n, getattr(m, n)) for m, n in
+             ((ba_mod, "median_pair"), (hs_mod, "median_pair"), (denoise_mod, "median_filter2d"))]
     torch.cuda.synchronize()
-    ba_mod.median_pair = hs_mod.median_pair = labelled
+    for m, n, fn in saved:
+        setattr(m, n, labelled(fn))
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
@@ -694,7 +728,8 @@ def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms, method="classic+nl-fas
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
-        ba_mod.median_pair = hs_mod.median_pair = pair
+        for m, n, fn in saved:
+            setattr(m, n, fn)
     # the ranges around median_pair appear once on the host and once as a
     # device annotation; only kernels count as device events
     events = [e for e in prof.events() if e.device_type == DeviceType.CUDA and e.name != "median_filter2d"]
@@ -758,16 +793,84 @@ def level_runs(solves):
     return runs
 
 
-def phase_path(torch, dev, card, name, rgb1, rgb2, tu, tv, keep=0):
-    """One BA or HS path at its preset's full schedule; returns each kernel's
-    launches in one frame and, with ``keep``, the frame's last ``keep``
-    PCG systems."""
-    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+def reset_counts():
+    """Set every kernel's launch count (and PCG's iteration total) to 0."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
-    from optical_flow_tpu_torch.solvers import cg as cg_solvers
 
-    # warm-up frame, reading each solve's iterations (a sync a solve)
-    solves, kept, call = [], [], cg_solvers.cg_solve
+    wmedian_kernel.launches = 0
+    rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_streaming = 0
+    cg_kernel.reset_stats()
+
+
+def read_counts():
+    """(launches by kernel, resident launches of PCG and ROF) since :func:`reset_counts`."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
+
+    return ({"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches},
+            {"cg resident": cg_kernel.launches_resident, "rof resident": rof_kernel.launches_resident})
+
+
+@contextlib.contextmanager
+def guard_tally(torch):
+    """Within the block, each level guard appends a 0-d device bool (True: the
+    level rolled back) to the list it yields; nothing is read on the host."""
+    from optical_flow_tpu_torch.methods import alt_ba, ba, classic_nl, hs
+    from optical_flow_tpu_torch.utils.guard import flow_is_healthy
+
+    rolled = []
+    saved = [(m, n, getattr(m, n)) for m, n in
+             ((alt_ba, "guard_level_pair"), (ba, "guard_level"), (classic_nl, "guard_level"), (hs, "guard_level"))]
+
+    def tallied(fn, n_new):
+        def guarded(*args):
+            new, max_flow = args[:n_new], args[-1]
+            rolled.append(~torch.stack([flow_is_healthy(f, max_flow) for f in new]).all())
+            return fn(*args)
+        return guarded
+
+    for m, n, fn in saved:
+        setattr(m, n, tallied(fn, 2 if n == "guard_level_pair" else 1))
+    try:
+        yield rolled
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+def frame_latency(torch, dev, name, params, rgb1, rgb2):
+    """Median of LATENCY_RUNS warm frames by CUDA events, the runs, and the host clock's median."""
+    from optical_flow_tpu_torch import estimate_flow
+
+    ev_ms, host_ms = [], []
+    for _ in range(LATENCY_RUNS):
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        start.record()
+        estimate_flow(rgb1, rgb2, name, params, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        host_ms.append(1e3 * (time.perf_counter() - t0))
+        ev_ms.append(start.elapsed_time(end))
+    return statistics.median(ev_ms), ev_ms, statistics.median(host_ms)
+
+
+def phase_path(torch, dev, card, label, name, params, gate, rgb1, rgb2, tu, tv, keep=0, solves_expected=None):
+    """One path at full size: a warm-up frame that reads each PCG solve's
+    iterations and each SOR solve's sweeps (a sync a solve), a counted frame
+    (no plain twin may run; the level guards tallied on the device and read
+    once after it), the accuracy gate ``((AAE, AEPE), (gate AAE, gate AEPE))``,
+    or with ``gate`` None the guard's bound (finite, |uv| <= 1e9), and the
+    latency.  Returns each kernel's launches in the counted frame and, with
+    ``keep``, the frame's last ``keep`` PCG systems."""
+    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.solvers import cg as cg_solvers
+    from optical_flow_tpu_torch.solvers.sor import CHUNK
+
+    solves, sweeps, kept = [], [], []
+    call, sor_call = cg_solvers.cg_solve, cg_solvers.sor_solve
 
     def recording(sysm, rtol, maxiter):
         x = call(sysm, rtol, maxiter)
@@ -777,62 +880,156 @@ def phase_path(torch, dev, card, name, rgb1, rgb2, tu, tv, keep=0):
             del kept[:-keep]
         return x
 
-    cg_solvers.cg_solve = recording
+    def recording_sor(sysm, omega, max_iters, tol):
+        x, k = sor_call(sysm, omega, max_iters, tol, return_iters=True)
+        sweeps.append((tuple(sysm.a11.shape), k))
+        return x
+
+    cg_solvers.cg_solve, cg_solvers.sor_solve = recording, recording_sor
     try:
         t0 = time.perf_counter()
-        estimate_flow(rgb1, rgb2, name, PATH_PARAMS, device=dev)
+        estimate_flow(rgb1, rgb2, name, params, device=dev)
         torch.cuda.synchronize()
     finally:
-        cg_solvers.cg_solve = call
-    print(f"{name}: warm-up frame {time.perf_counter() - t0:.2f} s (host clock, one sync a solve)")
+        cg_solvers.cg_solve, cg_solvers.sor_solve = call, sor_call
+    print(f"{label}: warm-up frame {time.perf_counter() - t0:.2f} s (host clock, one sync a solve)")
 
-    wmedian_kernel.launches = 0
-    rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_streaming = 0
-    cg_kernel.reset_stats()
-    with no_plain_twins():
-        uv = estimate_flow(rgb1, rgb2, name, PATH_PARAMS, device=dev)
+    reset_counts()
+    with no_plain_twins(), guard_tally(torch) as rolled:
+        uv = estimate_flow(rgb1, rgb2, name, params, device=dev)
         torch.cuda.synchronize()
-    launches = {"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches}
-    by_path = {"cg resident": cg_kernel.launches_resident, "rof resident": rof_kernel.launches_resident}
+    launches, by_path = read_counts()
     cg_iters = cg_kernel.iteration_counts(uv.device)[1]
+    rolled = [int(r) for r in torch.stack(rolled).tolist()] if rolled else []
 
     uv_np = uv.cpu().numpy()
-    check(uv_np.shape == (388, 584, 2) and uv_np.dtype == np.float32, f"{name}: unexpected flow {uv_np.shape} {uv_np.dtype}")
-    check(np.isfinite(uv_np).all(), f"{name}: flow is not finite")
+    check(uv_np.shape == (388, 584, 2) and uv_np.dtype == np.float32, f"{label}: unexpected flow {uv_np.shape} {uv_np.dtype}")
+    check(np.isfinite(uv_np).all(), f"{label}: flow is not finite")
     aae, _, aepe = flow_angular_error(tu, tv, uv_np[..., 0], uv_np[..., 1])
-    (t_aae, t_aepe), (g_aae, g_aepe) = PATH_GATES[name]
-    print(f"{name} RubberWhale 584x388: AAE {aae:.4f} deg, AEPE {aepe:.5f} px (reference oracle {t_aae} / {t_aepe}, "
-          f"gate {g_aae} / {g_aepe})")
-    runs = level_runs(solves)
-    cg_frame_bound = sum(cg_bound(h, w, i)["bound_ms"] for (h, w), i in solves)
-    print(f"{name}: launches in one frame {launches}, {by_path}, CG iterations {cg_iters} "
-          f"(warm-up {sum(i for _, i in solves)}), bound of the frame's solves {cg_frame_bound:.4f} ms; "
-          "per level, coarse to fine (shape: solves, iterations): "
-          + "; ".join(f"{h}x{w}: {k}, {i}" for (h, w), k, i in runs))
-    check(abs(aae - t_aae) <= g_aae and abs(aepe - t_aepe) <= g_aepe, f"{name}: accuracy outside the gate")
-    check(launches["cg"] == len(solves) and launches["cg"] > 0 and launches["rof"] == 1 and launches["wmedian"] == 0,
-          f"{name}: unexpected launch counts {launches} ({len(solves)} solves in the warm-up frame)")
-    check(by_path["cg resident"] == launches["cg"] and by_path["rof resident"] == 1, f"{name}: a solve left the resident path")
-    check(cg_iters == sum(i for _, i in solves), f"{name}: CG iterations differ between two frames")
-    if name != "hs":
-        check(len(solves) == 90, f"{name}: {len(solves)} PCG solves in a frame, expected 90")
+    if gate is None:
+        print(f"{label} RubberWhale 584x388: AAE {aae:.4f} deg, AEPE {aepe:.6g} px (JAX package, CPU float32: "
+              f"{ALT_JAX[0]} / {ALT_JAX[1]:g}; no gate, the trajectory diverges by design), max|uv| "
+              f"{float(np.abs(uv_np).max()):.6g} (bound 1e9)")
+    else:
+        (t_aae, t_aepe), (g_aae, g_aepe) = gate
+        print(f"{label} RubberWhale 584x388: AAE {aae:.4f} deg, AEPE {aepe:.5f} px (target {t_aae} / {t_aepe}, "
+              f"gate {g_aae} / {g_aepe})")
+    if rolled:
+        print(f"{label}: the guard rolled back {sum(rolled)} of {len(rolled)} levels (coarse to fine, 1 = rolled "
+              f"back): {rolled}")
+    if solves:
+        runs = level_runs(solves)
+        cg_frame_bound = sum(cg_bound(h, w, i)["bound_ms"] for (h, w), i in solves)
+        print(f"{label}: launches in one frame {launches}, {by_path}, CG iterations {cg_iters} "
+              f"(warm-up {sum(i for _, i in solves)}), bound of the frame's solves {cg_frame_bound:.4f} ms; "
+              "per level, coarse to fine (shape: solves, iterations): "
+              + "; ".join(f"{h}x{w}: {k}, {i}" for (h, w), k, i in runs))
+    if sweeps:
+        runs = level_runs(sweeps)
+        reads = sum(-(-k // CHUNK) for _, k in sweeps)
+        print(f"{label}: launches in one frame {launches}, {by_path}; {len(sweeps)} SOR solves, {sum(k for _, k in sweeps)} "
+              f"sweeps (per solve {min(k for _, k in sweeps)}-{max(k for _, k in sweeps)}); host reads a frame: "
+              f"{reads} convergence flags + {len(sweeps)} update norms; per level, coarse to fine (shape: solves, "
+              "sweeps, sweeps a solve): " + "; ".join(f"{h}x{w}: {k}, {i}, {i / k:.1f}" for (h, w), k, i in runs))
+    if gate is None:
+        check(float(np.abs(uv_np).max()) <= 1e9, f"{label}: flow beyond the guard's bound 1e9")
+    else:
+        check(abs(aae - t_aae) <= g_aae and abs(aepe - t_aepe) <= g_aepe, f"{label}: accuracy outside the gate")
+    check(launches["cg"] == len(solves) and launches["rof"] == 1 and launches["wmedian"] == 0,
+          f"{label}: unexpected launch counts {launches} ({len(solves)} PCG solves in the warm-up frame)")
+    check(len(solves) + len(sweeps) > 0, f"{label}: no solve ran")
+    check(by_path["cg resident"] == launches["cg"] and by_path["rof resident"] == 1, f"{label}: a solve left the resident path")
+    check(cg_iters == sum(i for _, i in solves), f"{label}: CG iterations differ between two frames")
+    if solves_expected is not None:
+        check(len(solves) == solves_expected, f"{label}: {len(solves)} PCG solves in a frame, expected {solves_expected}")
 
-    ev_ms, host_ms = [], []
-    for _ in range(LATENCY_RUNS):
-        start = torch.cuda.Event(enable_timing=True)
-        end = torch.cuda.Event(enable_timing=True)
-        torch.cuda.synchronize()
-        t0 = time.perf_counter()
-        start.record()
-        estimate_flow(rgb1, rgb2, name, PATH_PARAMS, device=dev)
-        end.record()
-        torch.cuda.synchronize()
-        host_ms.append(1e3 * (time.perf_counter() - t0))
-        ev_ms.append(start.elapsed_time(end))
-    frame_ms = statistics.median(ev_ms)
-    print(f"{name}: per-frame latency, median of {LATENCY_RUNS} warm runs: {frame_ms:.2f} ms (CUDA events; "
-          f"runs {', '.join(f'{x:.2f}' for x in ev_ms)}), {statistics.median(host_ms):.2f} ms (host clock)  [{card}]")
+    frame_ms, ev_ms, host_ms = frame_latency(torch, dev, name, params, rgb1, rgb2)
+    print(f"{label}: per-frame latency, median of {LATENCY_RUNS} warm runs: {frame_ms:.2f} ms (CUDA events; "
+          f"runs {', '.join(f'{x:.2f}' for x in ev_ms)}), {host_ms:.2f} ms (host clock)  [{card}]")
     return launches, kept, frame_ms
+
+
+def _nonfinite_pattern(torch, x):
+    return torch.isnan(x), torch.isinf(x)
+
+
+def phase_alt_unguarded(torch, dev, card, rgb1, rgb2):
+    """classic-c-a with ``guard_flow: None``: the trajectory must blow up (non-finite
+    or beyond 1e20 somewhere), as the JAX package's does.  The first PCG system of
+    the frame with a non-finite plane is held kernel against twin: the same
+    iterations, the same NaN and inf entries of x, the finite entries within
+    1e-5 x scale (the float32 twin or the twin with double sums, as phase 5)."""
+    from optical_flow_tpu_torch import estimate_flow
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.solvers import cg as cg_solvers
+    from optical_flow_tpu_torch.utils.guard import flow_health
+
+    captured, count, call = [], [0], cg_solvers.cg_solve
+
+    def capturing(sysm, rtol, maxiter):
+        count[0] += 1
+        if not captured and not all(bool(torch.isfinite(f).all()) for f in sysm):
+            captured.append((count[0], type(sysm)(*[f.clone() for f in sysm]), rtol, maxiter))
+        return call(sysm, rtol, maxiter)
+
+    reset_counts()
+    cg_solvers.cg_solve = capturing
+    try:
+        with no_plain_twins():
+            uv = estimate_flow(rgb1, rgb2, "classic-c-a", ALT_UNGUARDED, device=dev)
+            torch.cuda.synchronize()
+    finally:
+        cg_solvers.cg_solve = call
+    launches, by_path = read_counts()
+    health = flow_health(uv)
+    uv_np = uv.cpu().numpy()
+    blown = bool((~np.isfinite(uv_np)).any() or np.abs(uv_np[np.isfinite(uv_np)]).max() > 1e20)
+    print(f"classic-c-a guard_flow None RubberWhale 584x388: {health}, blown up (non-finite or > 1e20): {blown}; "
+          f"launches {launches}, {by_path}, {count[0]} PCG solves")
+    check(blown, "classic-c-a without the guard did not blow up, unlike the JAX package")
+    if not captured:
+        print("classic-c-a guard_flow None: no PCG solve of the frame saw a non-finite plane")
+        return launches
+    k, sysm, rtol, maxiter = captured[0]
+    H, W = sysm.a11.shape
+    bad = {name: int((~torch.isfinite(f)).sum()) for name, f in zip(sysm._fields, sysm) if not bool(torch.isfinite(f).all())}
+    x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
+    it_k = cg_kernel.iteration_counts(dev)[0]
+    pattern_k = _nonfinite_pattern(torch, x_k)
+    verdicts = []
+    for twin, sums in (("float32 twin", None), ("twin with double sums", torch.float64)):
+        x_t, it_t = cg_twin(torch, sysm, rtol, maxiter, sums=sums)
+        pattern_t = _nonfinite_pattern(torch, x_t)
+        same_pattern = all(torch.equal(a, b) for a, b in zip(pattern_k, pattern_t))
+        both = torch.isfinite(x_k) & torch.isfinite(x_t)
+        err = float((x_k - x_t)[both].abs().max()) if bool(both.any()) else 0.0
+        limit = 1e-5 * max(float(x_t[both].abs().max()) if bool(both.any()) else 0.0, 1.0)
+        ok = it_t == it_k and same_pattern and err <= limit
+        verdicts.append(ok)
+        print(f"classic-c-a guard_flow None, PCG system {k} ({H}x{W}, rtol {rtol:g}; non-finite entries by plane {bad}): "
+              f"iterations kernel {it_k} / {twin} {it_t}; x non-finite kernel {int((~torch.isfinite(x_k)).sum())} "
+              f"(NaN {int(pattern_k[0].sum())}) / twin {int((~torch.isfinite(x_t)).sum())}, same NaN and inf entries "
+              f"{same_pattern}; finite entries max|dx| {err:.3e} (limit {limit:.3e})")
+    check(any(verdicts), f"cg: the kernel differs from both twins on the non-finite system {k}")
+    return launches
+
+
+def phase_guard_noop(torch, dev, rgb1, rgb2):
+    """hs with ``guard_flow: 1e9`` equals hs without it, bit for bit, on the card."""
+    from optical_flow_tpu_torch import estimate_flow
+
+    plain = estimate_flow(rgb1, rgb2, "hs", PATH_PARAMS, device=dev)
+    reset_counts()
+    with no_plain_twins():
+        guarded = estimate_flow(rgb1, rgb2, "hs", {**PATH_PARAMS, "guard_flow": 1e9}, device=dev)
+        torch.cuda.synchronize()
+    launches, _ = read_counts()
+    again = estimate_flow(rgb1, rgb2, "hs", PATH_PARAMS, device=dev)
+    same, repeat = bool(torch.equal(plain, guarded)), bool(torch.equal(plain, again))
+    print(f"hs guard_flow 1e9 against no guard, RubberWhale 584x388: torch.equal {same} (no guard run twice: "
+          f"torch.equal {repeat}); launches {launches}")
+    check(same, "the guard changed a healthy hs frame")
+    return launches
 
 
 def phase_cg_finest(torch, dev, card, recorded):
@@ -944,14 +1141,23 @@ def main():
         del recorded_cg
         phase_profile(torch, dev, card, rgb1, rgb2, frame_ms)
         launches_by_path = {"classic+nl-fast": launches}
-        for name in PATH_GATES:
+        for name, gate in PATH_GATES.items():
             keep = 10 if name == "classic++" else 0
-            launches_by_path[name], recorded_cg, path_ms = phase_path(torch, dev, card, name, rgb1, rgb2, tu, tv, keep)
+            launches_by_path[name], recorded_cg, path_ms = phase_path(
+                torch, dev, card, name, name, PATH_PARAMS, gate, rgb1, rgb2, tu, tv, keep,
+                solves_expected=None if name == "hs" else 90)
             if name == "classic++":
                 phase_cg_finest(torch, dev, card, recorded_cg)
                 del recorded_cg
                 phase_profile(torch, dev, card, rgb1, rgb2, path_ms, "classic++", PATH_PARAMS)
         phase_plain_ops(torch, dev, card)
+        for label, name, params, gate, n_solves in NEW_PATHS:
+            launches_by_path[label], _, path_ms = phase_path(
+                torch, dev, card, label, name, params, gate, rgb1, rgb2, tu, tv, solves_expected=n_solves)
+            if label == "classic-c-a":
+                phase_profile(torch, dev, card, rgb1, rgb2, path_ms, name, params)
+                launches_by_path["classic-c-a unguarded"] = phase_alt_unguarded(torch, dev, card, rgb1, rgb2)
+        launches_by_path["hs guard"] = phase_guard_noop(torch, dev, rgb1, rgb2)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1

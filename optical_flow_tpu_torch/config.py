@@ -1,9 +1,8 @@
 """Method presets (port of ``optical_flow_tpu/config.py``).
 
-The Classic+NL, BA and Horn–Schunck families are ported with the JAX
-table's constants, and the ``classic-l`` alias of ``ba``.  ``classic-c-a``
-(alt-BA) raises ``NotImplementedError`` naming the ROADMAP item that
-ports it.
+Every preset of the JAX package with the JAX table's constants: the
+Classic+NL, BA, Horn–Schunck and alt-BA (``classic-c-a``) families, and the
+``classic-l`` alias of ``ba``.
 """
 from __future__ import annotations
 
@@ -43,6 +42,12 @@ def _ba():
     from optical_flow_tpu_torch.methods.ba import BAOpticalFlow
 
     return BAOpticalFlow()
+
+
+def _alt_ba():
+    from optical_flow_tpu_torch.methods.alt_ba import AltBAOpticalFlow
+
+    return AltBAOpticalFlow()
 
 
 # name -> (constructor, base preset name or None, settings factory)
@@ -103,6 +108,26 @@ _PRESETS = {
             **_penalties("lorentzian", 0.03, 1.5),
         },
     ),
+    "classic-c-a": (
+        _alt_ba,
+        None,
+        lambda: {
+            "median_filter_size": MEDIAN_FILTER_SIZE,
+            "texture": True,
+            "display": False,
+            "lambda2": 1e2,
+            "lambda3": 1,
+            "weightRatio": 1e2,  # lambda2 / lambda3
+            "itersLO": 5,
+            "lambda_": 5,
+            "lambda_q": 5,
+            **_penalties("charbonnier", 1e-3, 1e-3),
+            # the default trajectory diverges on real frames, in the reference
+            # too; the level-rollback guard keeps the flow finite and scoreable
+            # ({"guard_flow": None} reproduces the divergence)
+            "guard_flow": 1e9,
+        },
+    ),
     "classic-c-brightness": (
         _ba,
         None,
@@ -135,12 +160,13 @@ _PRESETS = {
 
 _ALIASES = {"classic-l": "ba"}
 
-_NOT_YET_PORTED = {
-    "classic-c-a": "ROADMAP queue 1, item 10 (alt-BA: denoise_LO, add_coupling and guard_flow)",
-}
-
 # the JAX package's method classes, by name, for ``method_from_state``
-_CLASSES = {"ClassicNLOpticalFlow": _classic_nl, "BAOpticalFlow": _ba, "HSOpticalFlow": _hs}
+_CLASSES = {
+    "ClassicNLOpticalFlow": _classic_nl,
+    "BAOpticalFlow": _ba,
+    "HSOpticalFlow": _hs,
+    "AltBAOpticalFlow": _alt_ba,
+}
 
 # Attributes of the JAX method object that drive JAX-only machinery (device
 # meshes, jit fusion, per-level checkpoint callbacks).  ``method_from_state``
@@ -155,17 +181,13 @@ JAX_ONLY_DEFAULTS = {
 
 
 def available_methods():
-    """All preset names of the JAX package, aliases included (``classic-c-a`` raises on load)."""
-    return sorted([*_PRESETS, *_NOT_YET_PORTED]) + sorted(_ALIASES)
+    """All preset names of the JAX package, aliases included."""
+    return sorted(_PRESETS) + sorted(_ALIASES)
 
 
 def load_of_method(method: str):
     """Load a pre-configured optical flow method by name."""
     name = _ALIASES.get(method, method)
-    if name in _NOT_YET_PORTED:
-        raise NotImplementedError(
-            f"method {method!r} is not ported yet: {_NOT_YET_PORTED[name]}"
-        )
     if name not in _PRESETS:
         raise ValueError(f"Unknown optical flow method: '{method}'")
     ope = _PRESETS[name][0]()
@@ -187,8 +209,8 @@ def method_from_state(state: dict):
     from ``vars(optical_flow_tpu.config.load_of_method(name))``, with each
     robust penalty given as ``(name, params)`` and ``dtype`` as a dtype name
     (``"float32"``).  ``state["__class__"]`` names the JAX object's class
-    (``"ClassicNLOpticalFlow"``, ``"BAOpticalFlow"`` or ``"HSOpticalFlow"``;
-    Classic+NL when absent), and the port builds its counterpart.  Unknown
+    (``"ClassicNLOpticalFlow"``, ``"BAOpticalFlow"``, ``"HSOpticalFlow"`` or
+    ``"AltBAOpticalFlow"``; Classic+NL when absent), and the port builds its counterpart.  Unknown
     attributes and classes raise ``KeyError``; JAX-only attributes raise
     ``ValueError`` unless they hold their inert default.
     """
@@ -210,7 +232,7 @@ def method_from_state(state: dict):
             val = getattr(torch, str(val))
         elif key in ("rho_spatial_u", "rho_spatial_v"):
             val = [Robust(name, params) for name, params in val]
-        elif key == "rho_data":
+        elif key in ("rho_data", "rho_couple"):
             val = Robust(*val)
         setattr(ope, key, val)
     return ope

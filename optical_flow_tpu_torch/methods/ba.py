@@ -26,6 +26,7 @@ from optical_flow_tpu_torch.ops.rof import structure_texture_decomposition_rof
 from optical_flow_tpu_torch.ops.stencil import blend_systems, build_irls_system
 from optical_flow_tpu_torch.solvers.cg import solve_flow_system
 from optical_flow_tpu_torch.utils.compat import fspecial_gaussian, scale_image
+from optical_flow_tpu_torch.utils.guard import guard_level
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,23 +52,34 @@ class IRLSLevelConfig:
     guard: float = 0.0
 
 
-def _blended_solve(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
-    """Solve the alpha-blended quadratic/robust IRLS system for the update."""
+def blended_system(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
+    """The alpha-blended quadratic/robust IRLS system of the update."""
     sys_q = build_irls_system(
         uv, duv, It, Ix, Iy, cfg.qua_rho_spatial_u, cfg.qua_rho_spatial_v, cfg.qua_rho_data, cfg.lambda_q
     )
     sys_r = build_irls_system(
         uv, duv, It, Ix, Iy, cfg.rho_spatial_u, cfg.rho_spatial_v, cfg.rho_data, cfg.lambda_
     )
-    x = solve_flow_system(blend_systems(alpha, sys_q, sys_r), *cfg.solver)
+    return blend_systems(alpha, sys_q, sys_r)
+
+
+def solve_update(cfg: IRLSLevelConfig, sys):
+    """Solve ``sys`` for the update and clip it to ±1 if ``cfg.limit_update``."""
+    x = solve_flow_system(sys, *cfg.solver)
     if cfg.limit_update:
         x = torch.clamp(x, -1.0, 1.0)
     return x
 
 
+def _blended_solve(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
+    """Solve the alpha-blended quadratic/robust IRLS system for the update."""
+    return solve_update(cfg, blended_system(cfg, uv, duv, It, Ix, Iy, alpha))
+
+
 def ba_level_step(cfg: IRLSLevelConfig, images, uv, alpha):
-    """One pyramid level of BA IRLS: ``max_iters`` warp iterations."""
+    """One pyramid level of BA IRLS: ``max_iters`` warp iterations, then the guard."""
     pre = precompute_warp(images, cfg.interp, np.array(cfg.deriv_filter), cfg.blend)
+    uv0 = uv
     for _ in range(cfg.max_iters):
         It, Ix, Iy = warp_deriv(pre, uv)
         duv = torch.zeros_like(uv)
@@ -77,6 +89,8 @@ def ba_level_step(cfg: IRLSLevelConfig, images, uv, alpha):
                 # the duv trick; this order of operations is the JAX package's
                 duv = median_pair(uv + duv, cfg.median_filter_size) - uv
         uv = uv + duv
+    if cfg.guard:
+        uv = guard_level(uv, uv0, cfg.guard)
     return uv
 
 
@@ -164,8 +178,6 @@ class BAOpticalFlow(BaseOpticalFlow):
         return qsu, qsv, qd
 
     def _level_cfg(self, max_linear=None) -> IRLSLevelConfig:
-        if self.guard_flow is not None:
-            raise NotImplementedError("guard_flow is not ported yet (ROADMAP queue 1, item 12)")
         qsu, qsv, qd = self._quadratic_relaxation()
         return IRLSLevelConfig(
             lambda_=float(self.lambda_),
@@ -184,7 +196,7 @@ class BAOpticalFlow(BaseOpticalFlow):
             deriv_filter=tuple(float(v) for v in np.asarray(self.deriv_filter).ravel()),
             blend=float(self.blend),
             solver=self._solver_cfg(),
-            guard=0.0,
+            guard=float(self.guard_flow) if self.guard_flow else 0.0,
         )
 
     def _gnc_alphas(self):

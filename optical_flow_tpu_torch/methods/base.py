@@ -48,7 +48,7 @@ class BaseOpticalFlow:
         self.dtype = torch.float32
         # dtype of the returned flow (e.g. 'float16'); None = the compute dtype
         self.out_dtype = None
-        # level-rollback guard of the JAX package; not ported (must stay None)
+        # level-rollback threshold (utils/guard.py); None = off
         self.guard_flow = None
 
         self.pyramid_levels = 4

@@ -21,6 +21,7 @@ from optical_flow_tpu_torch.ops.penalties import Robust
 from optical_flow_tpu_torch.ops.pyramid import auto_pyramid_levels, build_pyramid, pyramid_shapes
 from optical_flow_tpu_torch.ops.resample import resample_flow
 from optical_flow_tpu_torch.ops.wmedian import denoise_color_weighted_medfilt2
+from optical_flow_tpu_torch.utils.guard import guard_level
 
 
 @dataclasses.dataclass(frozen=True)
@@ -51,9 +52,10 @@ class NLFlowPlan:
 
 
 def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
-    """One pyramid level of Classic+NL: ``max_iters`` warp iterations."""
+    """One pyramid level of Classic+NL: ``max_iters`` warp iterations, then the guard."""
     irls = cfg.irls
     pre = precompute_warp(images, irls.interp, np.array(irls.deriv_filter), irls.blend)
+    uv0 = uv
     for _ in range(irls.max_iters):
         It, Ix, Iy = warp_deriv(pre, uv)
         duv = torch.zeros_like(uv)
@@ -73,6 +75,8 @@ def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
                 )
                 duv = filtered - uv
         uv = uv + duv
+    if irls.guard:
+        uv = guard_level(uv, uv0, irls.guard)
     return uv
 
 

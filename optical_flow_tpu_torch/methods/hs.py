@@ -23,6 +23,7 @@ from optical_flow_tpu_torch.ops.rof import structure_texture_decomposition_rof
 from optical_flow_tpu_torch.ops.stencil import build_hs_system
 from optical_flow_tpu_torch.solvers.cg import solve_flow_system
 from optical_flow_tpu_torch.utils.compat import scale_image
+from optical_flow_tpu_torch.utils.guard import guard_level
 
 STOP_NORM = 1e-3  # the warp loop stops once ||x|| < STOP_NORM
 
@@ -46,8 +47,9 @@ class HSLevelConfig:
 
 
 def hs_level_step(cfg: HSLevelConfig, images, uv):
-    """One pyramid level of Horn–Schunck, with the early stop."""
+    """One pyramid level of Horn–Schunck, with the early stop, then the guard."""
     pre = precompute_warp(images, cfg.interp, np.array(cfg.deriv_filter), cfg.blend)
+    uv0 = uv
     for _ in range(cfg.max_warping_iters):
         It, Ix, Iy = warp_deriv(pre, uv)
         sys = build_hs_system(uv, It, Ix, Iy, cfg.lambda_, cfg.sigmaD2, cfg.sigmaS2)
@@ -61,6 +63,8 @@ def hs_level_step(cfg: HSLevelConfig, images, uv):
         if cfg.median_filter_size is not None:
             for _k in range(cfg.mf_iter):
                 uv = median_pair(uv, cfg.median_filter_size)
+    if cfg.guard:
+        uv = guard_level(uv, uv0, cfg.guard)
     return uv
 
 
@@ -114,8 +118,6 @@ class HSOpticalFlow(BaseOpticalFlow):
         self.mf_iter = 1
 
     def _level_cfg(self) -> HSLevelConfig:
-        if self.guard_flow is not None:
-            raise NotImplementedError("guard_flow is not ported yet (ROADMAP queue 1, item 12)")
         return HSLevelConfig(
             lambda_=float(self.lambda_),
             sigmaD2=float(self.sigmaD2),
@@ -128,7 +130,7 @@ class HSOpticalFlow(BaseOpticalFlow):
             deriv_filter=tuple(float(v) for v in np.asarray(self.deriv_filter).ravel()),
             blend=float(self.blend),
             solver=self._solver_cfg(),
-            guard=0.0,
+            guard=float(self.guard_flow) if self.guard_flow else 0.0,
         )
 
     def _make_plan(self, sz) -> HSFlowPlan:

@@ -21,7 +21,7 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.ops.filters import correlate2d
-from optical_flow_tpu_torch.ops.interp import sample_bilinear, sample_cubic_spline, spline_coeffs_2d
+from optical_flow_tpu_torch.ops.interp import sample_bilinear, sample_cubic_spline, spline_coeffs_2d, tap_index
 
 DEFAULT_DERIV_FILTER = np.array([1.0, -8.0, 0.0, 8.0, -1.0]) / 12.0
 
@@ -141,8 +141,8 @@ def _hermite_bicubic(tables, yq, xq):
     fy = torch.floor(yq)
     oob = (fx < 0) | (fx + 1 > W - 1) | (fy < 0) | (fy + 1 > H - 1)
 
-    iy0 = torch.clamp(fy, 0, H - 1).long()
-    ix0 = torch.clamp(fx, 0, W - 1).long()
+    iy0 = tap_index(fy, H)
+    ix0 = tap_index(fx, W)
     flat = torch.stack(tables).reshape(4, H * W)  # (Z, DX, DY, DXY)
     corners = torch.stack(
         [torch.clamp(iy0 + a, max=H - 1) * W + torch.clamp(ix0 + b, max=W - 1) for a, b in HERMITE_CORNER_SHIFTS]

@@ -62,6 +62,16 @@ def _bspline3(t):
 _SPLINE_OFFSETS = (-1, 0, 1, 2)
 
 
+def tap_index(f, n: int):
+    """Integer index of the floored coordinates ``f``, clamped to [0, n - 1].
+
+    A NaN coordinate (a flow that diverged) reads index 0, as XLA converts
+    NaN to 0; its weights are NaN whatever it reads.  Converted unclamped,
+    NaN would become an out-of-range index.
+    """
+    return torch.clamp(torch.nan_to_num(f, nan=0.0), 0, n - 1).long()
+
+
 def sample_cubic_spline(coeffs, ys, xs):
     """Evaluate cubic B-spline surfaces at 0-based (ys, xs).
 
@@ -78,7 +88,7 @@ def sample_cubic_spline(coeffs, ys, xs):
     flat = padded.reshape(*coeffs.shape[:-2], -1)
     fy = torch.floor(ys)
     fx = torch.floor(xs)
-    base = torch.clamp(fy, 0, H - 1).long() * (W + 4) + torch.clamp(fx, 0, W - 1).long()
+    base = tap_index(fy, H) * (W + 4) + tap_index(fx, W)
     idx = torch.stack([base + (dy + 2) * (W + 4) + (dx + 2) for dy in _SPLINE_OFFSETS for dx in _SPLINE_OFFSETS])
     taps = flat[..., idx.reshape(-1)].reshape(*coeffs.shape[:-2], 16, *ys.shape).unbind(-1 - ys.ndim)
 
@@ -103,8 +113,8 @@ def sample_bilinear(im, ys, xs, mode: str = "nearest"):
     xsc = torch.clamp(xs, 0.0, W - 1.0)
     y0f = torch.floor(ysc)
     x0f = torch.floor(xsc)
-    y0 = y0f.long()
-    x0 = x0f.long()
+    y0 = tap_index(y0f, H)
+    x0 = tap_index(x0f, W)
     y1 = torch.clamp(y0 + 1, max=H - 1)  # == the edge-padded row below
     x1 = torch.clamp(x0 + 1, max=W - 1)
     ay = ysc - y0f

@@ -165,3 +165,12 @@ def build_hs_system(uv, It, Ix, Iy, lam, sigmaD2, sigmaS2) -> FlowSystem:
     b_u = -weighted_laplacian_apply(wh, wv, uv[:, :, 0]) - Itx
     b_v = -weighted_laplacian_apply(wh, wv, uv[:, :, 1]) - Ity
     return FlowSystem(Ix2, Ixy, Iy2, wh, wv, wh, wv, b_u, b_v)
+
+
+def add_coupling(sys: FlowSystem, weight) -> FlowSystem:
+    """Add a per-pixel diagonal coupling term ``weight`` (H, W, 2) to a11 and a22.
+
+    Alt-BA's coupling of the flow to its auxiliary field; the caller updates
+    the right-hand side.
+    """
+    return sys._replace(a11=sys.a11 + weight[:, :, 0], a22=sys.a22 + weight[:, :, 1])

@@ -5,13 +5,14 @@
 PCG at rtol 1e-7 / maxiter 1000.  Both go through
 :func:`~optical_flow_tpu_torch.ops.cuda.cg_kernel.cg_solve`: the whole-PCG
 kernel on the card, the plain twin :func:`pcg_solve_split` on the CPU.
-``'sor'`` and the gear / Chebyshev recurrences wait for ROADMAP queue 1,
-items 11 and 13.
+``'sor'`` is red-black SOR (:func:`~optical_flow_tpu_torch.solvers.sor.sor_solve`,
+plain PyTorch on either device).
 """
 from __future__ import annotations
 
 from optical_flow_tpu_torch.ops.cuda.cg_kernel import cg_solve, pcg_solve_split
 from optical_flow_tpu_torch.ops.stencil import FlowSystem
+from optical_flow_tpu_torch.solvers.sor import sor_solve
 
 __all__ = ["pcg_solve_split", "solve_flow_system"]
 
@@ -27,15 +28,11 @@ def solve_flow_system(
     sor_max_iters: int = 10000,
     sor_tol: float = 1e-2,
 ):
-    """Solve a :class:`FlowSystem` for the (H, W, 2) update field, from x0 = 0.
-
-    The ``sor_*`` settings keep the JAX package's solver tuple; they take
-    effect once ``'sor'`` is ported.
-    """
+    """Solve a :class:`FlowSystem` for the (H, W, 2) update field, from x0 = 0."""
     if solver == "pcg":
         return cg_solve(sys, pcg_rtol, pcg_maxiter)
     if solver == "backslash":
         return cg_solve(sys, backslash_rtol, backslash_maxiter)
     if solver == "sor":
-        raise NotImplementedError("solver 'sor' is not ported yet (ROADMAP queue 1, item 11)")
+        return sor_solve(sys, sor_omega, sor_max_iters, sor_tol)
     raise ValueError(f"Unknown solver: {solver}")

@@ -16,7 +16,7 @@ BA_HS = [
     "hs-brightness", "hs", "ba-brightness", "ba", "classic-l",
     "classic-c-brightness", "classic-c", "classic++",
 ]
-PORTED = CLASSIC_NL + BA_HS
+PORTED = CLASSIC_NL + BA_HS + ["classic-c-a"]
 
 
 def _plain(val):
@@ -120,12 +120,18 @@ def test_classic_pp_schedule_is_90_solves():
 
 
 def test_alt_ba_raises_with_roadmap_item():
-    from optical_flow_tpu.config import available_methods as aj
+    """Once a check that ``classic-c-a`` raised; alt-BA is ported, so it now
+    checks that the preset loads as the JAX package's does, with its guard on,
+    and that every preset name of the JAX package loads."""
+    from optical_flow_tpu.config import available_methods as aj, load_of_method as lj
     from optical_flow_tpu_torch.config import available_methods as ap, load_of_method
 
     assert ap() == aj()  # every preset name of the JAX package, in its order
-    with pytest.raises(NotImplementedError, match="ROADMAP queue 1, item 10"):
-        load_of_method("classic-c-a")
+    ope = load_of_method("classic-c-a")
+    assert type(ope).__name__ == type(lj("classic-c-a")).__name__ == "AltBAOpticalFlow"
+    assert (ope.guard_flow, ope.itersLO, ope.lambda2, ope.texture) == (1e9, 5, 1e2, True)
+    for name in ap():
+        load_of_method(name)
 
 
 def test_method_from_state_rejects_what_it_cannot_carry():
@@ -135,8 +141,8 @@ def test_method_from_state_rejects_what_it_cannot_carry():
         method_from_state({"no_such_setting": 1})
     with pytest.raises(ValueError):
         method_from_state({"fuse": True})
-    with pytest.raises(KeyError, match="AltBAOpticalFlow"):
-        method_from_state({"__class__": "AltBAOpticalFlow"})
+    with pytest.raises(KeyError, match="PyramidLKOpticalFlow"):
+        method_from_state({"__class__": "PyramidLKOpticalFlow"})
     with pytest.raises(ValueError, match="Unknown optical flow method"):
         from optical_flow_tpu_torch.config import load_of_method
 

@@ -308,8 +308,12 @@ def test_pcg_twin_iteration_count_and_unported_solvers(jnp, rng):
     xu_j, xv_j, k_j = run(sj_, aj, dj, pj)
     assert k_p == int(k_j) and 0 < k_p < 400
     close(xu_p, xu_j, rtol=1e-9, atol=1e-10)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        solve_flow_system(sp_, "sor")
+    # 'sor', once unported, solves through the dispatch as in the JAX package
+    from optical_flow_tpu.solvers.cg import solve_flow_system as sfj
+
+    close(solve_flow_system(sp_, "sor"), sfj(sj_, "sor"), rtol=1e-12, atol=1e-12)
+    with pytest.raises(ValueError, match="Unknown solver"):
+        solve_flow_system(sp_, "gauss-seidel")
 
 
 @pytest.mark.parametrize("dtype", ["float64", "float32"])

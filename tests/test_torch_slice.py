@@ -60,5 +60,6 @@ def test_device_is_explicit_and_out_dtype():
             estimate_flow(a, b)  # the default device is the card; no CPU fallback
     uv = estimate_flow(a, b, "classic+nl-fast", {**MAIN_PATH_PARAMS, "out_dtype": "float16"}, device="cpu")
     assert uv.dtype == torch.float16 and uv.device.type == "cpu" and uv.shape == (24, 32, 2)
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        estimate_flow(a, b, "classic-c-a", device="cpu")
+    # classic-c-a, which raised here before alt-BA was ported, runs on the CPU when asked
+    uv = estimate_flow(a, b, "classic-c-a", {"max_iters": 1}, device="cpu")
+    assert uv.dtype == torch.float32 and uv.shape == (24, 32, 2) and torch.isfinite(uv).all()
