@@ -10,8 +10,9 @@ Phases, each printing its results; any failed check exits non-zero:
    from ``optical_flow_tpu_torch/csrc`` (ptxas registers and spills);
 2. each kernel against its plain PyTorch twin on the card at main-path
    shapes, with both times (CUDA events); for the weighted median also
-   window half-sizes 0, 1 and 12, the coarsest main-path level and a
-   repeat run (determinism); for PCG and ROF both paths (resident at the
+   window half-sizes 0, 1 and 12, the wide kernel at 13 and 20, the
+   coarsest main-path level and a repeat run (determinism); for PCG and
+   ROF both paths (resident at the
    main path's shapes, streaming above the resident limit), repeat runs,
    and the streaming kernels (the previous design, unchanged) timed in
    turns with the resident ones on the same input;
@@ -56,7 +57,25 @@ Phases, each printing its results; any failed check exits non-zero:
     non-finite plane is held kernel against twin (iterations, the NaN and
     inf entries of x, the finite entries);
 11. ``hs`` with ``{"guard_flow": 1e9}`` equal to ``hs`` without it, bit for
-    bit.
+    bit;
+12. the batched serving path: ``estimate_flow_batched_rgb`` on the real pairs
+    of RubberWhale, Hydrangea, Dimetrodon and RubberWhale again as one batch
+    (classic+nl-fast, pcg): launches by path (21 weighted-median launches of
+    4 items, 21 PCG calls of which the two finest levels' launch once an
+    item, 1 ROF call; no plain twin), each item inside the classic+nl-fast
+    gate against the reference oracle of its sequence and within the
+    float32 slice bounds of its single-pair run, the two RubberWhale items
+    bit-identical; the batch's 21 PCG calls item by item against the twin
+    with their time and bound by level, its finest weighted-median call
+    against one launch per item and the twin, and its ROF call on 8 images
+    against the twin (phase 2 also runs the batched kernels on random
+    inputs at every plan path);
+13. batched latency at B = 1, 3 and 4 beside B single frames, the B = 3
+    batch's ROF call on 6 images against the twin, and one profiled B = 4
+    call (its PCG device launches equal to the launch count);
+14. ``estimate_flow_video`` on 5 gray frames of RubberWhale rolled 1 px a
+    frame (inner mean u ~ 1) and ``estimate_flow_stream`` over three real
+    pairs (each equal to its single-pair flow, in order).
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -68,7 +87,8 @@ median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
 (streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
 of each path driven (counts set to 0 just before it), the paths of phases
-9-11 included.  Without a CUDA device, or
+9-14 included.  A line before those holds phase 13's latencies and
+profile as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -110,11 +130,16 @@ NEW_PATHS = [  # (label, method, params, gate, PCG solves a frame)
     ("classic-c-a stable", "classic-c-a", ALT_STABLE, ((7.820, 0.2717), (0.2, 0.02)), 35),
     ("hs sor", "hs", {"display": False, "solver": "sor"}, ((3.3592, 0.10434), (0.2, 0.01)), 0),
 ]
+# the batched phase: the real pairs of these sequences (one twice) as one batch
+BATCH_SEQS = ("RubberWhale", "Hydrangea", "Dimetrodon", "RubberWhale")
 LATENCY_RUNS = 3
 SEED = 0
 # an H100 SXM's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
 INT32_MIN = -(2**31)
+# the weighted median against its twin on large real or random inputs: the
+# share of values that must be identical (the rest each a median within rounding)
+WMEDIAN_SHARE = 0.9999
 
 
 class CheckFailed(Exception):
@@ -273,25 +298,34 @@ def _wmedian_case(torch, dev, rng, H, W, hsz, C, ties=False, color_hi=255.0):
             _pad(torch, color, hsz, dev), (H, W), hsz, 7.0)
 
 
-def wmedian_agreement(torch, args, out, ref):
-    """(values that differ, share identical, every difference is an adjacent sample).
-
-    A differing value must be its window's sample adjacent (in sorted order)
-    to the twin's choice: the two sums' orders can only move the total/2
-    crossing across one sample."""
-    u_pad, v_pad, _, _, _, hsz, _ = args
-    diff = out != ref
-    n_diff = int(diff.sum())
-    adjacent = True
+def wmedian_valid(torch, args, out, ref):
+    """(values that differ, share identical, every difference is valid): a
+    value where ``out`` and ``ref`` differ is valid if, for both, it is a
+    weighted median of its window within the sums' rounding: with the
+    weights recomputed in float64 and T their total, the weight below the
+    value is at most T/2 and the weight up to it at least T/2, each within
+    K2 x 2^-22 x T (K2 float32 weights summed in some order).  A sum order
+    can only move the crossing of T/2 across samples whose weights that
+    tolerance covers.  The check passes with every difference valid and a
+    share of at least WMEDIAN_SHARE identical."""
+    u_pad, v_pad, occ_pad, guide_pad, _, hsz, sigma_i = args
     k = 2 * hsz + 1
+    tol = k * k * 2.0**-22
+    inv = 1.0 / (2.0 * float(sigma_i) ** 2)
+    ok = True
+    diff = out != ref
     for y, x, c in diff.nonzero().tolist():
-        win = (u_pad if c == 0 else v_pad)[y : y + k, x : x + k].reshape(-1)
-        a, b = out[y, x, c], ref[y, x, c]
-        lo, hi = torch.minimum(a, b), torch.maximum(a, b)
-        present = bool((win == a).any()) and bool((win == b).any())
-        between = int(((win > lo) & (win < hi)).sum())
-        adjacent = adjacent and present and between == 0
-    return n_diff, 1.0 - n_diff / out.numel(), adjacent
+        vals = (u_pad if c == 0 else v_pad)[y : y + k, x : x + k].double().reshape(-1)
+        g = guide_pad[:, y : y + k, x : x + k].double().reshape(guide_pad.shape[0], -1)
+        center = guide_pad[:, y + hsz, x + hsz].double()[:, None]
+        w = torch.clamp(torch.exp(-((g - center) ** 2).sum(0) * inv)
+                        * occ_pad[y : y + k, x : x + k].double().reshape(-1), min=1e-10)
+        half = float(w.sum()) / 2
+        for v in (float(out[y, x, c]), float(ref[y, x, c])):
+            below, upto = float(w[vals < v].sum()), float(w[vals <= v].sum())
+            ok = ok and below <= half + tol * 2 * half and upto >= half - tol * 2 * half
+    n_diff = int(diff.sum())
+    return n_diff, 1.0 - n_diff / out.numel(), ok
 
 
 def check_wmedian(torch, dev, card, rng):
@@ -313,10 +347,10 @@ def check_wmedian(torch, dev, card, rng):
     out = wmedian(*args)
     ref = wmedian_plain(*args)
     torch.cuda.synchronize()
-    n_diff, frac, adjacent = wmedian_agreement(torch, args, out, ref)
+    n_diff, frac, valid = wmedian_valid(torch, args, out, ref)
     print(f"wmedian {H}x{W} hsz {hsz} C 3: {n_diff} of {out.numel()} values differ "
-          f"({100 * frac:.4f}% identical), all adjacent samples: {adjacent}")
-    check(frac >= 0.9999 and adjacent, "weighted median outside the adjacent-sample criterion at 388x584")
+          f"({100 * frac:.4f}% identical), each a median within the sums' rounding: {valid}")
+    check(frac >= WMEDIAN_SHARE and valid, "weighted median outside the sums' rounding at 388x584")
     ms = cuda_ms(torch, lambda: wmedian(*args), 10)
     plain_ms = cuda_ms(torch, lambda: wmedian_plain(*args), 3)
     print(f"wmedian 388x584 hsz 7: kernel {ms:.3f} ms, plain {plain_ms:.3f} ms  [{card}]")
@@ -344,6 +378,55 @@ def check_wmedian(torch, dev, card, rng):
         n_diff = int((out != ref).sum())
         print(f"wmedian {H}x{W} hsz {hsz} C {C} (colours 0-24): {n_diff} differing values (bit-exact required)")
         check(n_diff == 0, f"weighted median is not bit-exact with its twin at {H}x{W} hsz {hsz} C {C}")
+
+    # a batch of 4 in one launch, bit for bit against the twin item by item and
+    # against one launch per item
+    from optical_flow_tpu_torch.ops.cuda import wmedian_kernel
+
+    items = [_wmedian_case(torch, dev, rng_new, 37, 53, 7, 3) for _ in range(4)]
+    args = tuple(torch.stack([it[k] for it in items]) for k in range(4)) + items[0][4:]
+    before = wmedian_kernel.launches
+    out = wmedian(*args)
+    one_launch = wmedian_kernel.launches - before
+    ref = wmedian_plain(*args)
+    each = torch.stack([wmedian(*it) for it in items])
+    torch.cuda.synchronize()
+    n_diff = int((out != ref).sum())
+    print(f"wmedian B 4 x 37x53 hsz 7 C 3 in {one_launch} launch: {n_diff} values differ from the twin "
+          f"(bit-exact required), equal to one launch per item: {torch.equal(out, each)}")
+    check(one_launch == 1 and n_diff == 0 and torch.equal(out, each), "the batched weighted median is not bit-exact")
+
+    # windows wider than the register kernel's (hsz 13 and 20): the wide
+    # kernel, one launch a call, bit for bit on small shapes with a narrow
+    # colour range, and at 388x584 hsz 13 within the sums' rounding
+    for (H, W), hsz, C in [((29, 43), 13, 1), ((29, 43), 13, 3), ((45, 47), 20, 3)]:
+        args = _wmedian_case(torch, dev, rng_new, H, W, hsz, C, color_hi=24.0)
+        before = wmedian_kernel.launches
+        out = wmedian(*args)
+        one_launch = wmedian_kernel.launches - before
+        ref = wmedian_plain(*args)
+        torch.cuda.synchronize()
+        n_diff = int((out != ref).sum())
+        print(f"wmedian {H}x{W} hsz {hsz} C {C} (wide kernel, colours 0-24) in {one_launch} launch: {n_diff} "
+              f"differing values (bit-exact required)")
+        check(one_launch == 1 and n_diff == 0, f"wide weighted median is not bit-exact with its twin at {H}x{W} hsz {hsz}")
+    args = _wmedian_case(torch, dev, rng_new, 388, 584, 13, 3)
+    out = wmedian(*args)
+    ref = wmedian_plain(*args)
+    again = wmedian(*args)
+    torch.cuda.synchronize()
+    n_diff, frac, valid = wmedian_valid(torch, args, out, ref)
+    wide_ms = cuda_ms(torch, lambda: wmedian(*args), 5)
+    wide_plain_ms = cuda_ms(torch, lambda: wmedian_plain(*args), 3)
+    wb = wmedian_bound(args)
+    print(f"wmedian 388x584 hsz 13 C 3 (wide kernel): {n_diff} of {out.numel()} values differ ({100 * frac:.4f}% "
+          f"identical), each a median within the sums' rounding: {valid}, run twice: torch.equal "
+          f"{torch.equal(again, out)}; kernel {wide_ms:.3f} ms, plain {wide_plain_ms:.3f} ms, bound "
+          f"{wb['bound_ms']:.4f} ms ({wb['bound_by']})  [{card}]")
+    check(frac >= WMEDIAN_SHARE and valid and torch.equal(again, out),
+          "wide weighted median outside the sums' rounding at 388x584 hsz 13")
+    result.update({"wide_hsz13_ms": wide_ms, "wide_hsz13_plain_ms": wide_plain_ms,
+                   "wide_hsz13_bound_ms": wb["bound_ms"]})
     return result
 
 
@@ -447,7 +530,7 @@ def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
                                            ("irls", irls_sys, 1e-3, 200, "resident"),
                                            ("random", big_sys, 1e-6, 100, "streaming")):
         H, W = sysm.a11.shape
-        plan = cg_kernel.cg_plan(H, W, *limits)
+        plan = cg_kernel.cg_plan(1, H, W, *limits)
         check(plan.path == path, f"cg {H}x{W}: path {plan.path}, expected {path}")
         x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
         it_k = cg_kernel.iteration_counts(dev)[0]
@@ -477,6 +560,54 @@ def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
             check(ms < streaming_ms, "cg: the resident kernel is not faster than the streaming one at 388x584")
             result = {"max_abs_err": err, "ms": ms, "plain_ms": plain_ms, **b, "streaming_ms": streaming_ms}
     return result
+
+
+def _random_batch_systems(torch, dev, rng, B, H, W):
+    """B seeded random flow systems of one shape, the items' edge weights
+    scaled 1, 30, 0.01, 3, ... so that they stop after different iteration counts."""
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem
+
+    scales = np.resize([1.0, 30.0, 0.01, 3.0], B)
+    items = [_random_flow_system(torch, dev, rng, H, W) for _ in range(B)]
+    items = [sysm._replace(**{f: getattr(sysm, f) * float(c) for f in ("wu_h", "wu_v", "wv_h", "wv_v")})
+             for sysm, c in zip(items, scales)]
+    return FlowSystem(*[torch.stack(planes) for planes in zip(*items)])
+
+
+def check_cg_batched(torch, dev, card, rng):
+    """The batched whole-PCG kernel on every plan path, item by item against
+    the plain twin (max |dx|, iterations) and against one solve per item."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem
+
+    limits = device_limits(dev)
+    for B, (H, W), maxiter in ((4, (25, 37), 300), (4, (49, 73), 300), (4, (97, 146), 300), (3, (194, 292), 300),
+                               (4, (388, 584), 100), (2, (1200, 1600), 60)):
+        sysm = _random_batch_systems(torch, dev, rng, B, H, W)
+        plan = cg_kernel.cg_plan(B, H, W, *limits)
+        x = cg_kernel.cg_solve(sysm, 1e-6, maxiter)
+        its = cg_kernel.item_iterations(dev)
+        again = cg_kernel.cg_solve(sysm, 1e-6, maxiter)
+        worst, it_twin, it_single, same_single = 0.0, [], [], True
+        for k in range(B):
+            item = FlowSystem(*[f[k] for f in sysm])
+            x_t, it_t = cg_twin(torch, item, 1e-6, maxiter)
+            single = cg_kernel.cg_solve(item, 1e-6, maxiter)
+            it_single.append(cg_kernel.iteration_counts(dev)[0])
+            it_twin.append(it_t)
+            worst = max(worst, float((x[k] - x_t).abs().max()) / (1e-5 * max(float(x_t.abs().max()), 1.0)))
+            if (plan.items == 1 or plan.path == "single" or plan.path == "streaming") and not torch.equal(x[k], single):
+                same_single = False
+        torch.cuda.synchronize()
+        print(f"cg batched B {B} x {H}x{W} ({plan.path}, {plan.blocks} bands an item, {plan.items} items a launch): "
+              f"iterations by item kernel {its} / single solves {it_single} / plain {it_twin}; worst max|dx| / limit "
+              f"{worst:.3f}; run twice: torch.equal {torch.equal(x, again)}; equal to one solve per item where the "
+              f"band layout is a single solve's: {same_single}")
+        check(worst <= 1.0 and torch.equal(x, again) and same_single, f"batched cg {B}x{H}x{W} differs")
+        check(all(abs(a - b) <= 2 for a, b in zip(its, it_twin)), f"batched cg {B}x{H}x{W}: iterations {its} vs {it_twin}")
+        if plan.items > 1:  # one launch for all: the easy item must stop first
+            check(len(set(its)) > 1, f"batched cg {B}x{H}x{W}: the items did not stop apart ({its})")
 
 
 def check_rof(torch, dev, card, rgb1, rgb2):
@@ -524,33 +655,16 @@ def check_rof(torch, dev, card, rgb1, rgb2):
 
 def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
     from optical_flow_tpu_torch import estimate_flow, flow_angular_error
-    from optical_flow_tpu_torch.ops import wmedian as wmedian_op
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
-    from optical_flow_tpu_torch.solvers import cg as cg_solvers
 
     # warm-up (allocator, cuBLAS), keeping a copy of each weighted median's
     # and each PCG solve's inputs
     recorded, recorded_cg = [], []
-    kernel_call, cg_call = wmedian_op.wmedian, cg_solvers.cg_solve
-
-    def recording(*args):
-        recorded.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
-        return kernel_call(*args)
-
-    def recording_cg(sysm, rtol, maxiter):
-        recorded_cg.append((type(sysm)(*[f.clone() for f in sysm]), rtol, maxiter))
-        return cg_call(sysm, rtol, maxiter)
-
-    wmedian_op.wmedian, cg_solvers.cg_solve = recording, recording_cg
-    try:
+    with _recording(torch, recorded, recorded_cg):
         estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
-    finally:
-        wmedian_op.wmedian, cg_solvers.cg_solve = kernel_call, cg_call
     torch.cuda.synchronize()
 
-    wmedian_kernel.launches = 0
-    rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_streaming = 0
-    cg_kernel.reset_stats()
+    reset_counts()
     uv = estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)
     torch.cuda.synchronize()
     launches = {"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches}
@@ -598,10 +712,10 @@ def phase_wmedian_levels(torch, card, recorded):
     out = wmedian(*finest)
     ref = wmedian_plain(*finest)
     torch.cuda.synchronize()
-    n_diff, frac, adjacent = wmedian_agreement(torch, finest, out, ref)
+    n_diff, frac, valid = wmedian_valid(torch, finest, out, ref)
     print(f"wmedian main-path input {H}x{W} hsz {finest[5]}: {n_diff} of {out.numel()} values differ "
-          f"({100 * frac:.4f}% identical), all adjacent samples: {adjacent}")
-    check(frac >= 0.9999 and adjacent, "weighted median outside the adjacent-sample criterion on the main path's input")
+          f"({100 * frac:.4f}% identical), each a median within the sums' rounding: {valid}")
+    check(frac >= WMEDIAN_SHARE and valid, "weighted median outside the sums' rounding on the main path's input")
     again = wmedian(*finest)
     torch.cuda.synchronize()
     check(torch.equal(again, out), "weighted median differs between two runs on the main path's input")
@@ -640,7 +754,7 @@ def phase_cg_levels(torch, dev, card, recorded):
     levels, frame_ms, frame_bound, finest = {}, 0.0, 0.0, None
     for k, (sysm, rtol, maxiter) in enumerate(recorded):
         H, W = sysm.a11.shape
-        plan = cg_kernel.cg_plan(H, W, *limits)
+        plan = cg_kernel.cg_plan(1, H, W, *limits)
         x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
         it_k = cg_kernel.iteration_counts(dev)[0]
         again = cg_kernel.cg_solve(sysm, rtol, maxiter)
@@ -697,12 +811,15 @@ def phase_cg_levels(torch, dev, card, recorded):
             "main_path_max_abs_err": err, "frame_sum_ms": frame_ms, "frame_sum_bound_ms": frame_bound}
 
 
-def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms, method="classic+nl-fast", params=PARAMS):
+def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms, method="classic+nl-fast", params=PARAMS, run=None,
+                  rof_device_launches=1, cg_device_launches=None):
     """One warm frame under torch.profiler: device busy time (the union of the
     device intervals), idle share, and device time by kernel; the plain
     median filter's device time (every kernel launched inside a
     ``median_pair`` call, or a median pass of Li–Osher denoising) is its own
-    row."""
+    row.  ``run`` (a callable, labelled ``method``) replaces the frame of
+    ``method``; ``rof_device_launches`` is the ROF device launches it must
+    make, ``cg_device_launches`` (if given) the PCG device launches."""
     from torch.autograd import DeviceType
     from torch.profiler import ProfilerActivity, profile, record_function
 
@@ -724,7 +841,10 @@ def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms, method="classic+nl-fas
     try:
         with profile(activities=[ProfilerActivity.CPU, ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
-            estimate_flow(rgb1, rgb2, method, params, device=dev)
+            if run is None:
+                estimate_flow(rgb1, rgb2, method, params, device=dev)
+            else:
+                run()
             torch.cuda.synchronize()
             wall_ms = 1e3 * (time.perf_counter() - t0)
     finally:
@@ -760,18 +880,24 @@ def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms, method="classic+nl-fas
         f"{k} {v / 1e3:.3f}" if k != "median" else f"median filter ({len(ranges)} calls) {median_row}"
         for k, v in split.items()))
     rof_launches = sum("rof_" in e.name for e in events)
-    print(f"profiled {method} frame: {rof_launches} ROF device launch(es), "
-          f"{sum('cg_' in e.name for e in events)} PCG device launches")
-    check(rof_launches == 1, f"ROF made {rof_launches} device launches in the {method} frame, expected 1")
+    cg_launches = sum("cg_" in e.name for e in events)
+    print(f"profiled {method} frame: {rof_launches} ROF device launch(es), {cg_launches} PCG device launches")
+    check(rof_launches == rof_device_launches,
+          f"ROF made {rof_launches} device launches in the {method} frame, expected {rof_device_launches}")
+    check(cg_device_launches is None or cg_launches == cg_device_launches,
+          f"PCG made {cg_launches} device launches in the {method} frame, its counter {cg_device_launches}")
+    return {"wall_ms": wall_ms, "busy_ms": busy_ms, "idle_share": 1 - busy_ms / frame_ms,
+            **{f"{k}_ms": v / 1e3 for k, v in split.items()}}
 
 
 @contextlib.contextmanager
 def no_plain_twins():
-    """Within the block, a call of the PCG or ROF plain twin fails the run:
-    nothing on a path may run them on the card."""
-    from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel
+    """Within the block, a call of the PCG, ROF or weighted-median plain twin
+    fails the run: nothing on a path may run them on the card."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
 
-    saved = [(m, n, getattr(m, n)) for m, n in ((cg_kernel, "cg_solve_plain"), (rof_kernel, "rof_structure_2d"))]
+    saved = [(m, n, getattr(m, n)) for m, n in ((cg_kernel, "cg_solve_plain"), (rof_kernel, "rof_structure_2d"),
+                                                (wmedian_kernel, "wmedian_plain"))]
     for m, n, _ in saved:
         setattr(m, n, lambda *a, _n=n, **k: check(False, f"the plain twin {_n} ran on the path"))
     try:
@@ -794,7 +920,7 @@ def level_runs(solves):
 
 
 def reset_counts():
-    """Set every kernel's launch count (and PCG's iteration total) to 0."""
+    """Set every kernel's launch count (and PCG's iteration and item totals) to 0."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
 
     wmedian_kernel.launches = 0
@@ -803,11 +929,14 @@ def reset_counts():
 
 
 def read_counts():
-    """(launches by kernel, resident launches of PCG and ROF) since :func:`reset_counts`."""
+    """(launches by kernel, launches by path and PCG's items) since :func:`reset_counts`."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
 
     return ({"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches},
-            {"cg resident": cg_kernel.launches_resident, "rof resident": rof_kernel.launches_resident})
+            {"cg resident": cg_kernel.launches_resident, "rof resident": rof_kernel.launches_resident,
+             "cg resident one item at a time": cg_kernel.launches_resident_per_item,
+             "cg streaming": cg_kernel.launches_streaming, "rof streaming": rof_kernel.launches_streaming,
+             "cg items": cg_kernel.items})
 
 
 @contextlib.contextmanager
@@ -1109,6 +1238,292 @@ def phase_plain_ops(torch, dev, card):
     check(err <= 1e-5, "B-spline prefilter outside 1e-5 of float64 on the card")
 
 
+def _recording(torch, record_wmedian, record_cg, record_rof=None):
+    """Context: the weighted-median, PCG and (with ``record_rof``) ROF calls
+    of the block append clones of their inputs to the lists."""
+    from optical_flow_tpu_torch.ops import rof as rof_op, wmedian as wmedian_op
+    from optical_flow_tpu_torch.solvers import cg as cg_solvers
+
+    kernel_call, cg_call, rof_call = wmedian_op.wmedian, cg_solvers.cg_solve, rof_op.rof_structure
+
+    def recording(*args):
+        record_wmedian.append(tuple(a.clone() if torch.is_tensor(a) else a for a in args))
+        return kernel_call(*args)
+
+    def recording_cg(sysm, rtol, maxiter):
+        record_cg.append((type(sysm)(*[f.clone() for f in sysm]), rtol, maxiter))
+        return cg_call(sysm, rtol, maxiter)
+
+    def recording_rof(im, theta, n_iters):
+        record_rof.append((im.clone(), theta, n_iters))
+        return rof_call(im, theta, n_iters)
+
+    @contextlib.contextmanager
+    def ctx():
+        wmedian_op.wmedian, cg_solvers.cg_solve = recording, recording_cg
+        if record_rof is not None:
+            rof_op.rof_structure = recording_rof
+        try:
+            yield
+        finally:
+            wmedian_op.wmedian, cg_solvers.cg_solve, rof_op.rof_structure = kernel_call, cg_call, rof_call
+
+    return ctx()
+
+
+def _batch_of(pairs):
+    return np.stack([p[1] for p in pairs]), np.stack([p[2] for p in pairs])
+
+
+def check_recorded_rof(torch, dev, card, recorded, label):
+    """The one ROF call a batch recorded, kernel against twin on its own input
+    (resident bit for bit, streaming within 1e-6, as phase 2 requires)."""
+    from optical_flow_tpu_torch.ops.cuda import rof_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
+    from optical_flow_tpu_torch.ops.cuda.rof_kernel import rof_structure, rof_structure_2d
+
+    check(len(recorded) == 1, f"{label}: recorded {len(recorded)} ROF calls, expected 1")
+    im, theta, n_iters = recorded[0]
+    plan = rof_kernel.rof_plan(*im.shape, *device_limits(dev))
+    out = rof_structure(im, theta, n_iters)
+    ref = rof_structure_2d(im, theta, n_iters)
+    torch.cuda.synchronize()
+    err = float((out - ref).abs().max())
+    limit = 0.0 if plan.path == "resident" else 1e-6
+    ms = cuda_ms(torch, lambda: rof_structure(im, theta, n_iters), 5)
+    print(f"rof {label}: {'x'.join(map(str, im.shape))} ({plan.path}), {n_iters} iterations: max|d| against the twin "
+          f"{err:.3e} (limit {limit:g}), {ms:.3f} ms  [{card}]")
+    check(err <= limit, f"{label}: the ROF kernel differs from its twin on the batch's input")
+    return {"rof_path": plan.path, "rof_max_abs_err": err, "rof_ms": ms}
+
+
+def phase_batch(torch, dev, card, pairs):
+    """``estimate_flow_batched_rgb`` on the real pairs of ``pairs`` (sequence,
+    rgb1, rgb2, tu, tv) as one batch: launches by path (no plain twin), each
+    item inside the classic+nl-fast gate against the reference oracle of its
+    sequence and within the float32 slice bounds of its own single-pair run
+    (mean |d| <= 1e-3 px, 99th percentile <= 1e-2 px, max <= 0.5 px; it is
+    bit-identical where every op gives an item an unbatched call's bits),
+    identical pairs bit-identical; then
+    the batch's recorded PCG systems
+    (kernel against twin item by item, time and bound by level) and its
+    finest weighted-median call (against one launch per item and the twin)."""
+    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.evaluation.gates import GATES, REF_ORACLE
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
+
+    B = len(pairs)
+    im1, im2 = _batch_of(pairs)
+    recorded_wm, recorded_cg, recorded_rof = [], [], []
+    with _recording(torch, recorded_wm, recorded_cg, recorded_rof):
+        estimate_flow_batched_rgb(im1, im2, "classic+nl-fast", params=PARAMS, device=dev)
+    torch.cuda.synchronize()
+    limits = device_limits(dev)
+    check(len(recorded_cg) == 21, f"recorded {len(recorded_cg)} batched PCG calls, expected 21")
+    # one launch a call, or one an item where the plan says so
+    plans = [cg_kernel.cg_plan(B, *sysm.a11.shape[-2:], *limits) for sysm, _, _ in recorded_cg]
+    cg_expected = sum(cg_kernel.device_launches(B, p) for p in plans)
+    per_item = sum(cg_kernel.device_launches(B, p) for p in plans if p.items < B)
+
+    reset_counts()
+    with no_plain_twins():
+        uv = estimate_flow_batched_rgb(im1, im2, "classic+nl-fast", params=PARAMS, device=dev)
+        torch.cuda.synchronize()
+    launches, by_path = read_counts()
+    iters = cg_kernel.iteration_counts(dev)[1]
+    print(f"batch B {B} ({', '.join(p[0] for p in pairs)}) 584x388 classic+nl-fast: launches {launches}, {by_path}, "
+          f"CG iterations over all items {iters}; PCG device launches expected from the plans {cg_expected}, "
+          f"{per_item} of them one item a launch")
+    check(launches == {"wmedian": 21, "cg": cg_expected, "rof": 1} and by_path["cg items"] == 21 * B
+          and by_path["cg resident"] == cg_expected and by_path["cg resident one item at a time"] == per_item,
+          f"batch: unexpected launches {launches}, {by_path}")
+
+    uv_np = uv.cpu().numpy()
+    check(uv_np.shape == (B, 388, 584, 2) and np.isfinite(uv_np).all(), f"batch: flow {uv_np.shape} not finite")
+    g_aae, g_aepe = GATES["classic+nl-fast"]
+    failed = []
+    for k, (seq, a, b, tu, tv) in enumerate(pairs):
+        aae, _, aepe = flow_angular_error(tu, tv, uv_np[k, ..., 0], uv_np[k, ..., 1])
+        o_aae, o_aepe = REF_ORACLE[seq]
+        single = estimate_flow(a, b, "classic+nl-fast", PARAMS, device=dev).cpu().numpy()
+        d = np.abs(uv_np[k] - single)
+        print(f"batch item {k} {seq}: AAE {aae:.4f} deg, AEPE {aepe:.5f} px (reference oracle {o_aae} / {o_aepe}, "
+              f"gate {g_aae} / {g_aepe}); against its single-pair run: bit-identical {np.array_equal(uv_np[k], single)}, "
+              f"|d| mean {d.mean():.3e}, 99th percentile {np.percentile(d, 99):.3e}, max {d.max():.3e} px")
+        if not (abs(aae - o_aae) <= g_aae and abs(aepe - o_aepe) <= g_aepe):
+            failed.append(f"batch item {k} {seq}: outside the gate")
+        if not (d.mean() <= 1e-3 and np.percentile(d, 99) <= 1e-2 and d.max() <= 0.5):
+            failed.append(f"batch item {k} {seq}: outside the float32 slice bounds of its single-pair run")
+    check(not failed, "; ".join(failed))
+    same = [(i, j) for i in range(B) for j in range(i + 1, B) if pairs[i][0] == pairs[j][0]]
+    for i, j in same:
+        print(f"batch items {i} and {j} ({pairs[i][0]} twice): torch.equal {torch.equal(uv[i], uv[j])}")
+        check(torch.equal(uv[i], uv[j]), f"batch items {i} and {j} differ on the same pair")
+
+    # the batch's PCG calls, item by item against the twin, time and bound by level
+    levels, frame_ms, frame_bound = {}, 0.0, 0.0
+    for sysm, rtol, maxiter in recorded_cg:
+        H, W = sysm.a11.shape[-2:]
+        plan = cg_kernel.cg_plan(B, H, W, *limits)
+        x = cg_kernel.cg_solve(sysm, rtol, maxiter)
+        its = cg_kernel.item_iterations(dev)
+        worst, it_t = 0.0, []
+        for k in range(B):
+            item = FlowSystem(*[f[k] for f in sysm])
+            err, limit, res, it = cg_compare(torch, item, rtol, maxiter, x[k], its[k])
+            if err > limit:  # the kernels sum in double: the twin with double sums is their recurrence
+                x_d = cg_twin(torch, item, rtol, maxiter, sums=torch.float64)[0]
+                err = min(err, float((x[k] - x_d).abs().max()))
+            check(err <= limit and res <= 10 * rtol, f"batched cg {H}x{W} item {k}: max|dx| {err:.3e} (limit {limit:.3e})")
+            worst = max(worst, err / limit)
+            it_t.append(it)
+        ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 3)
+        b = sum(cg_bound(H, W, i)["bound_ms"] for i in its)
+        frame_ms += ms
+        frame_bound += b
+        lv = levels.setdefault((H, W), {"plan": plan, "calls": 0, "its": [0] * B, "it_t": [0] * B, "ms": 0.0,
+                                        "bound": 0.0, "err": 0.0})
+        lv["calls"] += 1
+        lv["its"] = [a + c for a, c in zip(lv["its"], its)]
+        lv["it_t"] = [a + c for a, c in zip(lv["it_t"], it_t)]
+        lv["ms"] += ms
+        lv["bound"] += b
+        lv["err"] = max(lv["err"], worst)
+    torch.cuda.synchronize()
+    for (H, W), lv in levels.items():
+        p = lv["plan"]
+        print(f"cg batch B {B} level {H}x{W} ({p.path}, {p.blocks} bands an item, {p.items} items a launch): "
+              f"{lv['calls']} calls, iterations by item kernel {lv['its']} / plain {lv['it_t']}, {lv['ms']:.4f} ms "
+              f"({lv['ms'] / lv['calls']:.4f} ms a call), bound {lv['bound']:.4f} ms; worst max|dx| / limit "
+              f"{lv['err']:.3f}  [{card}]")
+    print(f"cg batch B {B}, the 21 calls one by one: {frame_ms:.3f} ms, bound {frame_bound:.4f} ms  [{card}]")
+
+    # the finest weighted-median call of the batch: one launch for B items
+    finest = max(recorded_wm, key=lambda a: a[4][0] * a[4][1])
+    H, W = finest[4]
+    out = wmedian(*finest)
+    each = torch.stack([wmedian(*[x[k] for x in finest[:4]], *finest[4:]) for k in range(B)])
+    ref = wmedian_plain(*finest)
+    torch.cuda.synchronize()
+    item_args = [(*[x[k] for x in finest[:4]], *finest[4:]) for k in range(B)]
+    valid = [wmedian_valid(torch, item_args[k], out[k], ref[k]) for k in range(B)]
+    ms = cuda_ms(torch, lambda: wmedian(*finest), 10)
+    ms_each = cuda_ms(torch, lambda: [wmedian(*[x[k] for x in finest[:4]], *finest[4:]) for k in range(B)], 10)
+    wb = sum(wmedian_bound((*[x[k] for x in finest[:4]], *finest[4:]))["bound_ms"] for k in range(B))
+    print(f"wmedian batch B {B} x {H}x{W} (the batch's finest input): one launch equal to one launch per item "
+          f"{torch.equal(out, each)}; against the twin, values differing by item {[a[0] for a in valid]}, "
+          f"each a median within the sums' rounding by item {[a[2] for a in valid]}; one launch {ms:.3f} ms, "
+          f"one launch per item {ms_each:.3f} ms, bound {wb:.4f} ms  [{card}]")
+    check(torch.equal(out, each) and all(a[1] >= WMEDIAN_SHARE and a[2] for a in valid),
+          "batched weighted median differs from one launch per item, or from the twin beyond the sums' rounding")
+    rof = check_recorded_rof(torch, dev, card, recorded_rof, f"batch B {B}")
+    return launches, by_path, {"batch_frame_sum_ms": frame_ms, "batch_frame_sum_bound_ms": frame_bound}, \
+        {"batch_main_path_ms": ms, "batch_per_item_ms": ms_each, "batch_main_path_bound_ms": wb}, \
+        {"batch_" + k: v for k, v in rof.items()}
+
+
+def phase_scaling(torch, dev, card, pairs):
+    """Batched latency at B = 1, 3 and 4 beside B single frames (median of
+    LATENCY_RUNS warm runs each, CUDA events), the ROF path each batch took
+    (the B = 3 call, on the resident path, against the twin on its own
+    input), and one profiled B = 4 call whose PCG device launches must equal
+    the launch count of an unprofiled one."""
+    from optical_flow_tpu_torch.ops.cuda import rof_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
+
+    single_ms, single_runs, _ = frame_latency(torch, dev, "classic+nl-fast", PARAMS, pairs[0][1], pairs[0][2])
+    print(f"scaling: single frame (RubberWhale) {single_ms:.2f} ms, runs {', '.join(f'{x:.2f}' for x in single_runs)}"
+          f"  [{card}]")
+    out = {"single_ms": single_ms}
+    for B in (1, 3, 4):
+        im1, im2 = _batch_of(pairs[:B])
+
+        def run():
+            return estimate_flow_batched_rgb(im1, im2, "classic+nl-fast", params=PARAMS, device=dev)
+
+        recorded_rof = []
+        with _recording(torch, [], [], recorded_rof):
+            run()
+        if B == 3:
+            rof = check_recorded_rof(torch, dev, card, recorded_rof, "batch B 3")
+            out.update({"batch3_" + k: v for k, v in rof.items()})
+        reset_counts()
+        run()
+        torch.cuda.synchronize()
+        cg_launches = read_counts()[0]["cg"]
+        ev_ms = []
+        for _ in range(LATENCY_RUNS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            ev_ms.append(start.elapsed_time(end))
+        ms = statistics.median(ev_ms)
+        rof_path = rof_kernel.rof_plan(2 * B, 388, 584, *device_limits(dev)).path
+        print(f"scaling: batch B {B}: {ms:.2f} ms (runs {', '.join(f'{x:.2f}' for x in ev_ms)}), {ms / B:.2f} ms a pair; "
+              f"{B} single frames {B * single_ms:.2f} ms; ratio {B * single_ms / ms:.3f}; ROF on {2 * B} images "
+              f"{rof_path}; PCG device launches {cg_launches}  [{card}]")
+        out[f"batch{B}_ms"] = ms
+    prof = phase_profile(torch, dev, card, None, None, out["batch4_ms"], "batch B 4", run=run,
+                         rof_device_launches=101 if rof_path == "streaming" else 1, cg_device_launches=cg_launches)
+    return out, prof
+
+
+def phase_video_stream(torch, dev, card, pairs, cg_batch4):
+    """``estimate_flow_video`` on 5 gray frames of RubberWhale rolled 1 px a
+    frame (inner mean u ~ 1), and ``estimate_flow_stream`` over the real
+    pairs, each flow equal to its single-pair run, in order."""
+    from optical_flow_tpu_torch import estimate_flow
+    from optical_flow_tpu_torch.parallel.video import estimate_flow_stream, estimate_flow_video
+    from optical_flow_tpu_torch.utils.compat import rgb2gray
+
+    gray = rgb2gray(torch.as_tensor(pairs[0][1])).numpy()
+    frames = np.stack([np.roll(gray, k, axis=1) for k in range(5)])
+    estimate_flow_video(frames, "classic+nl-fast", params=PARAMS, device=dev)
+    reset_counts()
+    with no_plain_twins():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        uv = estimate_flow_video(frames, "classic+nl-fast", params=PARAMS, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+    video, by_path = read_counts()
+    uv_np = uv.cpu().numpy()
+    inner = uv_np[:, 20:-20, 20:-20]
+    means = [(float(m[..., 0].mean()), float(m[..., 1].mean())) for m in inner]
+    print(f"video: 5 gray frames of RubberWhale rolled 1 px a frame: flows {uv_np.shape}, inner mean (u, v) by pair "
+          f"{[(round(u, 4), round(v, 4)) for u, v in means]}; launches {video}, {by_path}; "
+          f"{start.elapsed_time(end):.2f} ms for the 4 pairs  [{card}]")
+    check(uv_np.shape == (4, 388, 584, 2) and np.isfinite(uv_np).all(), "video: flow not finite")
+    check(all(abs(u - 1.0) <= 0.05 and abs(v) <= 0.05 for u, v in means), "video: the 1 px shift is not recovered")
+    # the 4 pairs run as one batch of 4 with the batch phase's PCG plans
+    check(video == {"wmedian": 0, "cg": cg_batch4, "rof": 1} and by_path["cg items"] == 84, f"video: launches {video}")
+
+    seqs = pairs[:3]
+    reset_counts()
+    with no_plain_twins():
+        t0 = time.perf_counter()
+        outs = list(estimate_flow_stream(iter([(p[1], p[2]) for p in seqs]), "classic+nl-fast", PARAMS,
+                                         max_in_flight=2, device=dev))
+        stream_ms = 1e3 * (time.perf_counter() - t0)
+    stream, _ = read_counts()
+    same = [bool(np.array_equal(o, estimate_flow(p[1], p[2], "classic+nl-fast", PARAMS, device=dev).cpu().numpy()))
+            for o, p in zip(outs, seqs)]
+    print(f"stream: {len(outs)} pairs ({', '.join(p[0] for p in seqs)}), max_in_flight 2: {stream_ms:.2f} ms "
+          f"(host clock), {stream_ms / len(outs):.2f} ms a pair; equal to one estimate_flow a pair, in order: {same}; "
+          f"launches {stream}  [{card}]")
+    check(len(outs) == 3 and all(same), "stream: a flow differs from its single-pair run")
+    check(stream == {"wmedian": 63, "cg": 63, "rof": 3}, f"stream: launches {stream}")
+    return video, stream
+
+
 def main():
     try:
         import torch
@@ -1134,6 +1549,7 @@ def main():
             "cg": check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv),
             "rof": check_rof(torch, dev, card, rgb1, rgb2),
         }
+        check_cg_batched(torch, dev, card, rng)
         launches, recorded, recorded_cg, frame_ms = phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv)
         results["wmedian"].update(phase_wmedian_levels(torch, card, recorded))
         del recorded
@@ -1158,6 +1574,14 @@ def main():
                 phase_profile(torch, dev, card, rgb1, rgb2, path_ms, name, params)
                 launches_by_path["classic-c-a unguarded"] = phase_alt_unguarded(torch, dev, card, rgb1, rgb2)
         launches_by_path["hs guard"] = phase_guard_noop(torch, dev, rgb1, rgb2)
+        pairs = [(seq, *read_flow_file(seq, 10)) for seq in BATCH_SEQS]
+        launches_by_path["batch"], _, cg_batch, wm_batch, rof_batch = phase_batch(torch, dev, card, pairs)
+        results["cg"].update(cg_batch)
+        results["wmedian"].update(wm_batch)
+        results["rof"].update(rof_batch)
+        scaling, prof = phase_scaling(torch, dev, card, pairs)
+        launches_by_path["video"], launches_by_path["stream"] = phase_video_stream(
+            torch, dev, card, pairs, launches_by_path["batch"]["cg"])
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1175,6 +1599,7 @@ def main():
          **results[name], "library_ms": None}
         for name, (src, rep) in meta.items()
     ]
+    print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -26,7 +26,18 @@
 //
 // Every block reduces the per-block partials itself, in one fixed order (no
 // float atomics), so every block takes the same branch and the result
-// repeats run to run.  Semantics follow the plain twin (pcg_solve_split):
+// repeats run to run.
+//
+// Batch axis: B independent systems, each with its own stopping test and
+// trip count, as the Pallas kernel's batch grid axis.  A resident launch
+// holds `items` systems of `bands` blocks each (block b solves item
+// b / bands); an item's sums run over its own blocks only, in one fixed
+// order, so its bits depend only on its own band layout.  The loop runs
+// while any item of the launch still iterates, a stopped item's state
+// frozen, so that every block reaches every grid barrier.  One block an item
+// (bands == 1) needs no barrier and loops on its own test.  Where the bands
+// of all items do not fit on the card at once, the entry launches items one
+// at a time; the streaming kernel always does.  Semantics follow the plain twin (pcg_solve_split):
 // x0 = 0, the test ||r||^2 > rtol^2 ||b||^2 before every iteration, at most
 // maxiter iterations, a zero step where p.Ap == 0 or r.z == 0, and the
 // per-pixel 2x2 block-Jacobi preconditioner with 1e-12 guards.
@@ -45,7 +56,8 @@ struct CgArgs {
   float* x;  // (H, W, 2)
   float *ru, *rv, *zu, *zv, *pu, *pv, *apu, *apv, *i00, *i01, *i11;
   double* partials;
-  int* iters;  // [0]: this solve's iteration count, [1]: running total
+  int* iters;  // [0]: running total, [1 + item]: this item's iteration count
+  int item;    // the item this launch solves
   int H, W;
   float rtol2;
   int maxiter;
@@ -209,8 +221,8 @@ __global__ void __launch_bounds__(kThreads) cg_kernel(CgArgs s) {
     grid.sync();
   }
   if (blockIdx.x == 0 && threadIdx.x == 0) {
-    s.iters[0] = it;
-    s.iters[1] += it;
+    s.iters[1 + s.item] = it;
+    s.iters[0] += it;
   }
 }
 
@@ -233,15 +245,27 @@ __device__ __forceinline__ void barrier_sync() {
 }
 
 struct ResArgs {
-  const float *a11, *a12, *a22, *wuh, *wuv, *wvh, *wvv, *bu, *bv;
-  float* x;        // (H, W, 2)
+  const float *a11, *a12, *a22, *wuh, *wuv, *wvh, *wvv, *bu, *bv;  // (items, H, W)
+  float* x;        // (items, H, W, 2)
   float* zhalo;    // (blocks, 2 sides, 2 fields, W): z on each band's first and last row
   double* partials;  // (2 parities, 2 sums, kResMaxBlocks)
-  int* iters;
+  int* iters;      // [0]: running total, [1 + item0 + item]: each item's iterations
+  int item0;       // the first item of this launch
+  int bands;       // blocks an item
   int H, W;
   float rtol2;
   int maxiter;
 };
+
+// The arguments of one item: every plane offset to that item's.
+__device__ __forceinline__ ResArgs item_args(ResArgs s, int item) {
+  const long n = (long)item * s.H * s.W;
+  s.a11 += n; s.a12 += n; s.a22 += n;
+  s.wuh += n; s.wuv += n; s.wvh += n; s.wvv += n;
+  s.bu += n; s.bv += n;
+  s.x += 2 * n;
+  return s;
+}
 
 // rows [row0, row0 + rows) of band b of nb: the first H % nb bands take one
 // row more (band_bounds in ops/cuda/cg_kernel.py)
@@ -307,10 +331,11 @@ __device__ void block_sum(double (&v)[N], double (*red)[kResThreads / 32]) {
 // data between them.  grid_publish: the block's sums go to `partials` (the
 // half of the epoch's parity, rewritten two epochs later when every block
 // has read it), then the grid barrier.  grid_collect: thread i < gridDim.x
-// fetches block i's sums (one round trip to L2 for all), and warp 0 adds
-// them in one fixed order (lane l takes blocks l, l + 32, ..., then a
-// shuffle tree), so every block gets the same bits.  A single block
-// (kBarBlock) skips both.
+// fetches block i's sums (one round trip to L2 for all), and warp w adds
+// those of items w, w + 8, ..., each in one fixed order (lane l takes the
+// item's blocks l, l + 32, ..., then a shuffle tree), so every block gets
+// the same bits for every item.  isum[q][item] holds them until the next
+// collect; v gets this block's item's.  A single block (kBarBlock) skips both.
 template <int N, int kBar>
 __device__ void grid_publish(double (&v)[N], unsigned epoch, const ResArgs& s,
                              double (*red)[kResThreads / 32]) {
@@ -323,42 +348,47 @@ __device__ void grid_publish(double (&v)[N], unsigned epoch, const ResArgs& s,
 }
 
 template <int N, int kBar>
-__device__ void grid_collect(double (&v)[N], unsigned epoch, const ResArgs& s,
-                             double (*red)[kResThreads / 32], double (*gath)[kResThreads]) {
+__device__ void grid_collect(double (&v)[N], unsigned epoch, const ResArgs& s, int item,
+                             double (*gath)[kResThreads], double (*isum)[kResMaxBlocks]) {
   if constexpr (kBar == kBarBlock) return;
-  const int tid = threadIdx.x;
+  const int tid = threadIdx.x, lane = tid & 31, nbi = s.bands;
   if (tid < (int)gridDim.x)
 #pragma unroll
     for (int q = 0; q < N; ++q) gath[q][tid] = __ldcg(s.partials + (2 * (epoch & 1) + q) * kResMaxBlocks + tid);
   __syncthreads();
-  if (tid < 32) {
+  for (int it = tid >> 5; it < (int)gridDim.x / nbi; it += kResThreads / 32) {
 #pragma unroll
     for (int q = 0; q < N; ++q) {
       double a = 0.0;
-      for (int i = tid; i < (int)gridDim.x; i += 32) a += gath[q][i];
+      for (int i = lane; i < nbi; i += 32) a += gath[q][it * nbi + i];
       for (int o = 16; o > 0; o >>= 1) a += __shfl_down_sync(0xffffffffu, a, o);
-      if (tid == 0) red[q][0] = a;
+      if (lane == 0) isum[q][it] = a;
     }
   }
   __syncthreads();
 #pragma unroll
-  for (int q = 0; q < N; ++q) v[q] = red[q][0];
-  __syncthreads();
+  for (int q = 0; q < N; ++q) v[q] = isum[q][item];
 }
 
-// One block per band of rows.  Shared memory, in floats: p_u, p_v with a
-// halo row above and below, (rows + 2) W each; the vertical weights with the
-// row above, (rows + 1) W each; the horizontal weights, the data block and
-// the preconditioner, rows W each.  Registers: x, r and t (A p, then z) of
-// PPT pixels a thread.
+// One block per band of rows; block b works on item b / bands of the launch.
+// Shared memory, in floats: p_u, p_v with a halo row above and below,
+// (rows + 2) W each; the vertical weights with the row above, (rows + 1) W
+// each; the horizontal weights, the data block and the preconditioner,
+// rows W each.  Registers: x, r and t (A p, then z) of PPT pixels a thread.
 template <int PPT, int kBar>
-__global__ void __launch_bounds__(kResThreads, 1) cg_resident(ResArgs s) {
+__global__ void __launch_bounds__(kResThreads, 1) cg_resident(ResArgs base) {
   extern __shared__ float smem[];
   __shared__ double red[2][kResThreads / 32];
   __shared__ double gath[2][kResThreads];
-  const int W = s.W, H = s.H, nb = gridDim.x, b = blockIdx.x, tid = threadIdx.x;
+  __shared__ double isum[2][kResMaxBlocks];  // each item's sums, from grid_collect
+  __shared__ float tol2s[kResMaxBlocks];     // each item's rtol^2 ||b||^2
+  __shared__ unsigned char act[kResMaxBlocks];  // each item still iterates
+  const int nb = base.bands, item = blockIdx.x / nb, b = blockIdx.x, tid = threadIdx.x;
+  const int items = gridDim.x / nb;
+  const ResArgs s = item_args(base, item);
+  const int W = s.W, H = s.H;
   int row0, rows;
-  band_of(b, nb, H, row0, rows);
+  band_of(b - item * nb, nb, H, row0, rows);
   const int n = rows * W;
   float* spu = smem;
   float* spv = spu + (rows + 2) * W;
@@ -432,18 +462,32 @@ __global__ void __launch_bounds__(kResThreads, 1) cg_resident(ResArgs s) {
     }
   }
   grid_publish<2, kBar>(sums, ++epoch, s, red);  // also orders the p writes above
-  grid_collect<2, kBar>(sums, epoch, s, red, gath);
+  grid_collect<2, kBar>(sums, epoch, s, item, gath, isum);
   float rz = (float)sums[0];
   float rr = (float)sums[1];
   const float tol2 = s.rtol2 * rr;
 
+  // every item's stopping test, the same in every block (kBarCoop); one
+  // block alone tests only its own item
+  bool active = 0 < s.maxiter && rr > tol2, any = active;
+  if constexpr (kBar != kBarBlock) {
+    bool mine = false;
+    if (tid < items) {
+      const float bb = (float)isum[1][tid];
+      tol2s[tid] = s.rtol2 * bb;
+      act[tid] = mine = 0 < s.maxiter && bb > tol2s[tid];
+    }
+    any = __syncthreads_or(mine);
+    active = act[item];
+  }
+
   int it = 0;
-  while (it < s.maxiter && rr > tol2) {
+  for (int step = 0; any; ++step) {
     // (A) t = A p, p.Ap
     double pap[1] = {0.0};
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
-      if (ij[k] < 0) continue;
+      if (ij[k] < 0 || !active) continue;
       const int il = ij[k] >> 16, j = ij[k] & 0xffff, i = row0 + il;
       const int q = il * W + j, c = q + W;  // c: the pixel in the haloed planes
       const float pu = spu[c], pv = spv[c];
@@ -462,7 +506,7 @@ __global__ void __launch_bounds__(kResThreads, 1) cg_resident(ResArgs s) {
       pap[0] += (double)pu * tu[k] + (double)pv * tv[k];
     }
     grid_publish<1, kBar>(pap, ++epoch, s, red);
-    grid_collect<1, kBar>(pap, epoch, s, red, gath);
+    grid_collect<1, kBar>(pap, epoch, s, item, gath, isum);
     const float pap_f = (float)pap[0];
     const float alpha = pap_f != 0.0f ? rz / pap_f : 0.0f;
 
@@ -470,7 +514,7 @@ __global__ void __launch_bounds__(kResThreads, 1) cg_resident(ResArgs s) {
     double rzrr[2] = {0.0, 0.0};
 #pragma unroll
     for (int k = 0; k < PPT; ++k) {
-      if (ij[k] < 0) continue;
+      if (ij[k] < 0 || !active) continue;
       const int il = ij[k] >> 16, j = ij[k] & 0xffff, q = il * W + j;
       xu[k] += alpha * spu[q + W];
       xv[k] += alpha * spv[q + W];
@@ -493,35 +537,48 @@ __global__ void __launch_bounds__(kResThreads, 1) cg_resident(ResArgs s) {
       rzrr[1] += (double)ru[k] * ru[k] + (double)rv[k] * rv[k];
     }
     grid_publish<2, kBar>(rzrr, ++epoch, s, red);
-    grid_collect<2, kBar>(rzrr, epoch, s, red, gath);
-    const float rz_new = (float)rzrr[0];
-    rr = (float)rzrr[1];
-    const float beta = rz != 0.0f ? rz_new / rz : 0.0f;
+    grid_collect<2, kBar>(rzrr, epoch, s, item, gath, isum);
 
-    // (C) p = z + beta p on the band and on both halo rows
+    if (active) {
+      const float rz_new = (float)rzrr[0];
+      rr = (float)rzrr[1];
+      const float beta = rz != 0.0f ? rz_new / rz : 0.0f;
+
+      // (C) p = z + beta p on the band and on both halo rows
 #pragma unroll
-    for (int k = 0; k < PPT; ++k) {
-      if (ij[k] < 0) continue;
-      const int c = ((ij[k] >> 16) + 1) * W + (ij[k] & 0xffff);
-      spu[c] = tu[k] + beta * spu[c];
-      spv[c] = tv[k] + beta * spv[c];
-    }
-    if (kBar != kBarBlock) {
-      for (int j = tid; j < W; j += kResThreads) {
-        if (above) {
-          spu[j] = __ldcg(&s.zhalo[((b - 1) * 4 + 2) * W + j]) + beta * spu[j];
-          spv[j] = __ldcg(&s.zhalo[((b - 1) * 4 + 3) * W + j]) + beta * spv[j];
-        }
-        if (below) {
-          const int c = (rows + 1) * W + j;
-          spu[c] = __ldcg(&s.zhalo[((b + 1) * 4 + 0) * W + j]) + beta * spu[c];
-          spv[c] = __ldcg(&s.zhalo[((b + 1) * 4 + 1) * W + j]) + beta * spv[c];
+      for (int k = 0; k < PPT; ++k) {
+        if (ij[k] < 0) continue;
+        const int c = ((ij[k] >> 16) + 1) * W + (ij[k] & 0xffff);
+        spu[c] = tu[k] + beta * spu[c];
+        spv[c] = tv[k] + beta * spv[c];
+      }
+      if (kBar != kBarBlock) {
+        for (int j = tid; j < W; j += kResThreads) {
+          if (above) {
+            spu[j] = __ldcg(&s.zhalo[((b - 1) * 4 + 2) * W + j]) + beta * spu[j];
+            spv[j] = __ldcg(&s.zhalo[((b - 1) * 4 + 3) * W + j]) + beta * spv[j];
+          }
+          if (below) {
+            const int c = (rows + 1) * W + j;
+            spu[c] = __ldcg(&s.zhalo[((b + 1) * 4 + 0) * W + j]) + beta * spu[c];
+            spv[c] = __ldcg(&s.zhalo[((b + 1) * 4 + 1) * W + j]) + beta * spv[c];
+          }
         }
       }
+      rz = rz_new;
+      ++it;
     }
-    rz = rz_new;
-    ++it;
-    __syncthreads();
+    if constexpr (kBar == kBarBlock) {
+      __syncthreads();
+      active = any = it < s.maxiter && rr > tol2;
+    } else {
+      // an item that ran this iteration goes on while its test holds; the
+      // test reads the item's r.r of this collect, as its own blocks do
+      bool mine = false;
+      if (tid < items && act[tid]) act[tid] = mine = step + 1 < s.maxiter && (float)isum[1][tid] > tol2s[tid];
+      any = __syncthreads_or(mine);
+      active = act[item];
+    }
   }
 #pragma unroll
   for (int k = 0; k < PPT; ++k) {
@@ -530,9 +587,9 @@ __global__ void __launch_bounds__(kResThreads, 1) cg_resident(ResArgs s) {
     s.x[2 * g] = xu[k];
     s.x[2 * g + 1] = xv[k];
   }
-  if (b == 0 && tid == 0) {
-    s.iters[0] = it;
-    s.iters[1] += it;
+  if (b == item * nb && tid == 0) {
+    s.iters[1 + s.item0 + item] = it;
+    atomicAdd(&s.iters[0], it);
   }
 }
 
@@ -542,7 +599,7 @@ cudaError_t launch_resident(ResArgs& s, int blocks, int smem, cudaStream_t st) {
   cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
   if (err != cudaSuccess) return err;
   void* kargs[] = {&s};
-  if (kBar == kBarBlock) return cudaLaunchKernel(fn, dim3(1), dim3(kResThreads), kargs, smem, st);
+  if (kBar == kBarBlock) return cudaLaunchKernel(fn, dim3(blocks), dim3(kResThreads), kargs, smem, st);
   return cudaLaunchCooperativeKernel(fn, dim3(blocks), dim3(kResThreads), kargs, smem, st);
 }
 
@@ -568,41 +625,50 @@ extern "C" int device_limits(int* out) {
   return (int)err;
 }
 
-// The resident solve: `blocks` bands (1: one block, no grid barrier), PPT
-// pixels a thread, `smem` bytes of dynamic shared memory, as cg_plan in
-// ops/cuda/cg_kernel.py chooses them.  zhalo: blocks * 4 * W floats;
-// partials: 4 * kResMaxBlocks doubles; iters: 2 ints.
+// The resident solve of B (H, W) systems: `bands` blocks an item (1: one
+// block, no grid barrier), `items` systems a launch (B, or 1 to launch once
+// per item on the stream), PPT pixels a thread, `smem` bytes of dynamic
+// shared memory, as cg_plan in ops/cuda/cg_kernel.py chooses them.  zhalo:
+// items * bands * 4 * W floats; partials: 4 * kResMaxBlocks doubles;
+// iters: 1 + B ints.
 extern "C" int cg_resident_f32(const float* a11, const float* a12, const float* a22, const float* wuh,
                                const float* wuv, const float* wvh, const float* wvv, const float* bu,
                                const float* bv, float* x, float* zhalo, double* partials, int* iters,
-                               int H, int W, float rtol2, int maxiter, int blocks, int ppt, int smem,
-                               void* stream) {
-  if (blocks < 1 || blocks > kResMaxBlocks || blocks > H || W >= 65536) return (int)cudaErrorInvalidValue;
-  ResArgs s;
-  s.a11 = a11; s.a12 = a12; s.a22 = a22;
-  s.wuh = wuh; s.wuv = wuv; s.wvh = wvh; s.wvv = wvv;
-  s.bu = bu; s.bv = bv;
-  s.x = x; s.zhalo = zhalo; s.partials = partials; s.iters = iters;
-  s.H = H; s.W = W; s.rtol2 = rtol2; s.maxiter = maxiter;
+                               int B, int H, int W, float rtol2, int maxiter, int bands, int items,
+                               int ppt, int smem, void* stream) {
+  if (B < 1 || items < 1 || items > B || bands < 1 || bands > H || W >= 65536 ||
+      (bands > 1 && items * bands > kResMaxBlocks))
+    return (int)cudaErrorInvalidValue;
   cudaStream_t st = static_cast<cudaStream_t>(stream);
-  const cudaError_t err = blocks == 1 ? launch_resident_ppt<kBarBlock>(s, 1, ppt, smem, st)
-                                      : launch_resident_ppt<kBarCoop>(s, blocks, ppt, smem, st);
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  const long n = (long)H * W;
+  for (int i0 = 0; i0 < B; i0 += items) {
+    const int m = B - i0 < items ? B - i0 : items;
+    ResArgs s;
+    s.a11 = a11 + i0 * n; s.a12 = a12 + i0 * n; s.a22 = a22 + i0 * n;
+    s.wuh = wuh + i0 * n; s.wuv = wuv + i0 * n; s.wvh = wvh + i0 * n; s.wvv = wvv + i0 * n;
+    s.bu = bu + i0 * n; s.bv = bv + i0 * n;
+    s.x = x + 2 * i0 * n; s.zhalo = zhalo; s.partials = partials; s.iters = iters;
+    s.item0 = i0; s.bands = bands;
+    s.H = H; s.W = W; s.rtol2 = rtol2; s.maxiter = maxiter;
+    const cudaError_t err = bands == 1 ? launch_resident_ppt<kBarBlock>(s, m, ppt, smem, st)
+                                       : launch_resident_ppt<kBarCoop>(s, m * bands, ppt, smem, st);
+    if (err != cudaSuccess) return (int)err;
+    const cudaError_t last = cudaGetLastError();
+    if (last != cudaSuccess) return (int)last;
+  }
+  return (int)cudaSuccess;
 }
 
-// Coefficient planes (H, W) each; x: (H, W, 2) out; work: 11 planes (H, W);
-// partials: 4 * kMaxBlocks doubles; iters: 2 ints.
+// B systems of coefficient planes (B, H, W) each; x: (B, H, W, 2) out; work:
+// 11 planes (H, W), reused item after item; partials: 4 * kMaxBlocks
+// doubles; iters: 1 + B ints.  One launch per item.
 extern "C" int cg_solve_f32(const float* a11, const float* a12, const float* a22, const float* wuh,
                             const float* wuv, const float* wvh, const float* wvv, const float* bu,
                             const float* bv, float* x, float* work, double* partials, int* iters,
-                            int H, int W, float rtol2, int maxiter, void* stream) {
+                            int B, int H, int W, float rtol2, int maxiter, void* stream) {
+  if (B < 1) return (int)cudaErrorInvalidValue;
   const long n = (long)H * W;
   CgArgs s;
-  s.a11 = a11; s.a12 = a12; s.a22 = a22;
-  s.wuh = wuh; s.wuv = wuv; s.wvh = wvh; s.wvv = wvv;
-  s.bu = bu; s.bv = bv;
-  s.x = x;
   float* planes[11];
   for (int q = 0; q < 11; ++q) planes[q] = work + q * n;
   s.ru = planes[0]; s.rv = planes[1]; s.zu = planes[2]; s.zv = planes[3];
@@ -621,10 +687,19 @@ extern "C" int cg_solve_f32(const float* a11, const float* a12, const float* a22
   if (blocks > want) blocks = want;
   if (blocks > kMaxBlocks) blocks = kMaxBlocks;
   if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
-  void* kargs[] = {&s};
-  cudaError_t err = cudaLaunchCooperativeKernel((const void*)cg_kernel, dim3((unsigned)blocks),
-                                                dim3(kThreads), kargs, 0,
-                                                static_cast<cudaStream_t>(stream));
-  if (err != cudaSuccess) return (int)err;
-  return (int)cudaGetLastError();
+  for (int item = 0; item < B; ++item) {
+    s.a11 = a11 + item * n; s.a12 = a12 + item * n; s.a22 = a22 + item * n;
+    s.wuh = wuh + item * n; s.wuv = wuv + item * n; s.wvh = wvh + item * n; s.wvv = wvv + item * n;
+    s.bu = bu + item * n; s.bv = bv + item * n;
+    s.x = x + 2 * item * n;
+    s.item = item;
+    void* kargs[] = {&s};
+    cudaError_t err = cudaLaunchCooperativeKernel((const void*)cg_kernel, dim3((unsigned)blocks),
+                                                  dim3(kThreads), kargs, 0,
+                                                  static_cast<cudaStream_t>(stream));
+    if (err != cudaSuccess) return (int)err;
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
+  }
+  return (int)cudaSuccess;
 }

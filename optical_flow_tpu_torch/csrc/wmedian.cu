@@ -53,13 +53,17 @@
 // The weights round as the plain twin's (--fmad=false, expf, no fast math)
 // and are bit-identical to them.  The sums run in another order than the
 // twin's sorted cumsum, so where S(m) lands within rounding of total/2 the
-// result can be the adjacent sample; chip_smoke.py checks that criterion.
+// result can be another sample that is a weighted median within the sums'
+// rounding; chip_smoke.py checks that criterion.
+// Windows wider than hsz 12 run wmedian_wide_kernel below: the same sums
+// and bisection with one warp a pixel and its samples in shared memory.
+#include <algorithm>
 #include <climits>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kMaxHsz = 12;
+constexpr int kMaxHsz = 12;     // the widest window of the register kernel
 constexpr int kMaxSlots = 29;     // register slots per lane at the default lane counts
 constexpr int kThreads = 256;     // threads per block on large levels
 constexpr int kMinThreads = 32;   // ... and the fewest, on small ones
@@ -290,10 +294,105 @@ cudaError_t launch(const Args& a, cudaStream_t stream) {
   return cudaGetLastError();
 }
 
+// Windows wider than kMaxHsz, whose samples do not fit in a group's
+// registers: one warp a pixel, hsz read at run time.  Lane l owns the
+// samples o = l + 32 s, as the register kernel's 32-lane groups do, and
+// keeps their weights and one field's keys in a shared-memory strip of its
+// warp's own (2 K2 words a warp, indexed by o, so the lanes of a warp hit
+// distinct banks and no lane reads another's words: no barrier).  The
+// window is read from global memory (L1 / L2), not staged.  Sums are per
+// lane in slot order and then the xor butterfly, so the results repeat
+// and the bisection is the register kernel's.
+__global__ void __launch_bounds__(kThreads) wmedian_wide_kernel(Args a, int hsz, int warps) {
+  extern __shared__ float smem[];
+  const int K = 2 * hsz + 1, K2 = K * K;
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  float* w_s = smem + (size_t)warp * 2 * K2;
+  int* k_s = reinterpret_cast<int*>(w_s + K2);
+  const long p = (long)blockIdx.x * warps + warp;
+  if (p >= (long)a.H * a.W) return;  // the whole warp leaves; no barrier follows
+  const int y = (int)(p / a.W), x = (int)(p - (long)y * a.W);
+  const int Wp = a.W + 2 * hsz;
+  const long plane = (long)(a.H + 2 * hsz) * Wp;
+  const long item = (long)blockIdx.z * plane;  // the item's padded plane
+  const float* guide = a.guide + (long)blockIdx.z * a.C * plane;
+  const long center = (long)(y + hsz) * Wp + x + hsz;
+  const unsigned mask = 0xffffffffu;
+
+  float total = 0.0f;
+  for (int o = lane; o < K2; o += 32) {
+    const long e = (long)(y + o / K) * Wp + x + o % K;
+    float cdiff = 0.0f;
+    for (int ch = 0; ch < a.C; ++ch) {
+      const float d = guide[ch * plane + e] - guide[ch * plane + center];
+      cdiff = cdiff + d * d;
+    }
+    const float w = fmaxf(expf(-cdiff * a.inv_2s2) * a.occ[item + e], 1e-10f);
+    w_s[o] = w;
+    total = total + w;
+  }
+  const float half = group_sum<32>(total, mask) * 0.5f;
+
+  int hi_f[2];
+#pragma unroll
+  for (int f = 0; f < 2; ++f) {
+    const float* field = f == 0 ? a.u : a.v;
+    int lo = INT_MAX, hi = INT_MIN;
+    for (int o = lane; o < K2; o += 32) {
+      const int key = encode_f32(field[item + (long)(y + o / K) * Wp + x + o % K]);
+      k_s[o] = key;
+      lo = min(lo, key);
+      hi = max(hi, key);
+    }
+    lo = __reduce_min_sync(mask, lo) - 1;  // S(lo) = 0 < total/2
+    hi = __reduce_max_sync(mask, hi);
+    for (int round = 0; round < 32 && (unsigned)hi - (unsigned)lo > 1u; ++round) {
+      const int mid = (lo & hi) + ((lo ^ hi) >> 1);
+      float s = 0.0f;
+      for (int o = lane; o < K2; o += 32) {
+        if (k_s[o] <= mid) s = s + w_s[o];
+      }
+      if (group_sum<32>(s, mask) >= half) {
+        hi = mid;
+      } else {
+        lo = mid;
+      }
+    }
+    hi_f[f] = hi;
+  }
+  if (lane == 0) {
+    reinterpret_cast<float2*>(a.out)[((long)blockIdx.z * a.H + y) * a.W + x] =
+        make_float2(decode_i32(hi_f[0]), decode_i32(hi_f[1]));
+  }
+}
+
+// Warps (pixels) a block of the wide kernel: 8, fewer where their strips
+// exceed the opt-in shared memory; 0 where one strip does.
+int wide_warps(int hsz) {
+  if (hsz > 1024) return 0;
+  const size_t strip = sizeof(float) * 2 * (size_t)(2 * hsz + 1) * (2 * hsz + 1);
+  return (int)std::min<size_t>(kThreads / 32, kMaxSmem / strip);
+}
+
+cudaError_t launch_wide(int hsz, const Args& a, cudaStream_t stream) {
+  const int warps = wide_warps(hsz);
+  if (warps == 0) return cudaErrorInvalidValue;
+  const size_t smem = sizeof(float) * 2 * (size_t)(2 * hsz + 1) * (2 * hsz + 1) * warps;
+  if (smem > 48 * 1024) {
+    const cudaError_t err =
+        cudaFuncSetAttribute(wmedian_wide_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, (int)smem);
+    if (err != cudaSuccess) return err;
+  }
+  const long pixels = (long)a.H * a.W;
+  const dim3 grid((unsigned)((pixels + warps - 1) / warps), 1, a.B);
+  wmedian_wide_kernel<<<grid, 32 * warps, smem, stream>>>(a, hsz, warps);
+  return cudaGetLastError();
+}
+
 template <int HSZ>
 cudaError_t dispatch(int hsz, const Args& a, cudaStream_t stream) {
   if constexpr (HSZ > kMaxHsz) {
-    return cudaErrorInvalidValue;
+    return launch_wide(hsz, a, stream);
   } else {
     constexpr int G = lanes_for(HSZ);
     if (hsz == HSZ) return a.C == 3 ? launch<HSZ, G, 3>(a, stream) : launch<HSZ, G, 0>(a, stream);
@@ -302,7 +401,7 @@ cudaError_t dispatch(int hsz, const Args& a, cudaStream_t stream) {
 }
 
 bool valid(int B, int C, int H, int W, int hsz) {
-  return hsz >= 0 && hsz <= kMaxHsz && C >= 1 && B >= 1 && H >= 1 && W >= 1;
+  return hsz >= 0 && wide_warps(hsz) > 0 && C >= 1 && B >= 1 && H >= 1 && W >= 1;
 }
 
 }  // namespace

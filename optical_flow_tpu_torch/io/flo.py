@@ -29,6 +29,20 @@ def read_flo(filename):
     return data.reshape((h, w, 2))
 
 
+def write_flo(flow, filename):
+    """Write an (H, W, 2) flow field (numpy or a tensor on any device) as ``.flo``."""
+    if hasattr(flow, "detach"):
+        flow = flow.detach().cpu().numpy()
+    flow = np.ascontiguousarray(np.asarray(flow, dtype=np.float32))
+    if flow.ndim != 3 or flow.shape[2] != 2:
+        raise ValueError(f"Flow must be (H, W, 2) array, got shape {flow.shape}")
+    h, w = flow.shape[:2]
+    with open(filename, "wb") as f:
+        np.array([TAG_FLOAT], dtype=np.float32).tofile(f)
+        np.array([w, h], dtype=np.int32).tofile(f)
+        flow.tofile(f)
+
+
 def read_flow_file(seq_name, i_seq, data_dir=None):
     """Load a Middlebury image pair (float64) + ground-truth flow (tu, tv or None).
 

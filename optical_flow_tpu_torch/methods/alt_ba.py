@@ -102,8 +102,10 @@ class AltBAFlowPlan:
     stages: Tuple[Tuple[AltBALevelConfig, float, bool], ...]  # (cfg, alpha, replacement)
 
 
-def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = False):
+def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = False, checkpoint=None):
     """The whole GNC + coarse-to-fine Alt-BA flow; returns the auxiliary field.
+    ``checkpoint(stage, level, uv)`` after every level, if given (``uv``,
+    not the auxiliary field, as in the JAX package).
 
     The texture route runs ROF at its default ``alp`` 0.95, whatever the
     method's ``alp``, as the reference does.
@@ -124,6 +126,8 @@ def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = 
             uv = resample_flow(uv, shapes[level])
             uvhat = resample_flow(uvhat, shapes[level])
             uv, uvhat = alt_ba_level_step(cfg, cur[level], uv, uvhat, alpha, replacement)
+            if checkpoint is not None:
+                checkpoint(stage_idx, level, uv)
     return uvhat
 
 
@@ -203,7 +207,8 @@ class AltBAOpticalFlow(BAOpticalFlow):
         """The auxiliary field (H, W, 2) from the (H, W, 2) gray pair; no colour guide."""
         sz = tuple(int(s) for s in images.shape[:2])
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
-        return alt_ba_flow_program(self._make_alt_plan(sz), images, uv, uv, display=bool(self.display))
+        return alt_ba_flow_program(self._make_alt_plan(sz), images, uv, uv, display=bool(self.display),
+                                   checkpoint=self.checkpoint)
 
     def compute_flow_base(self, images, uv, uvhat=None):
         """One level at the method's own ``alpha`` and ``replacement``, from ``uv``

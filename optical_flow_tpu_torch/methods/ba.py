@@ -109,18 +109,21 @@ class BAFlowPlan:
     stages: Tuple[Tuple[IRLSLevelConfig, float], ...]  # (cfg, alpha) per stage
 
 
-def _preprocess_traced(kind: str, images, alp: float):
-    """The level pyramids' input: the ROF texture, a Gaussian high-pass, or a rescale to [0, 255]."""
+def _preprocess_traced(kind: str, images, alp: float, batch_dims: int = 0):
+    """The level pyramids' input: the ROF texture, a Gaussian high-pass, or a
+    rescale to [0, 255], each item of ``batch_dims`` leading batch axes
+    normalised on its own."""
     if kind == "texture":
-        return structure_texture_decomposition_rof(images, 1.0 / 8, 100, alp)
+        return structure_texture_decomposition_rof(images, 1.0 / 8, 100, alp, batch_dims)
     if kind == "fc":
-        hp = images - alp * correlate2d_multi(images, fspecial_gaussian(5, 1.5), "reflect")
-        return scale_image(hp, 0, 255)
-    return scale_image(images, 0, 255)
+        hp = images - alp * correlate2d_multi(images, fspecial_gaussian(5, 1.5), "reflect", batch_dims)
+        return scale_image(hp, 0, 255, batch_dims=batch_dims)
+    return scale_image(images, 0, 255, batch_dims=batch_dims)
 
 
-def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False):
-    """The whole GNC + coarse-to-fine BA flow."""
+def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpoint=None):
+    """The whole GNC + coarse-to-fine BA flow; ``checkpoint(stage, level, uv)``
+    after every level, if given."""
     proc = _preprocess_traced(plan.preprocess, images, plan.alp)
     pyramid = build_pyramid(proc, plan.levels, plan.spacing)
     gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing)
@@ -136,6 +139,8 @@ def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False):
                 print(f"  Pyramid level: {level + 1}")
             uv = resample_flow(uv, shapes[level])
             uv = ba_level_step(cfg, cur[level], uv, alpha)
+            if checkpoint is not None:
+                checkpoint(stage_idx, level, uv)
     return uv
 
 
@@ -234,4 +239,4 @@ class BAOpticalFlow(BaseOpticalFlow):
         """Flow (H, W, 2) from the (H, W, 2) gray pair; BA has no colour guide."""
         sz = tuple(int(s) for s in images.shape[:2])
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
-        return ba_flow_program(self._make_plan(sz), images, uv, display=bool(self.display))
+        return ba_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint)

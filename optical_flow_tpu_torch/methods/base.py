@@ -50,6 +50,9 @@ class BaseOpticalFlow:
         self.out_dtype = None
         # level-rollback threshold (utils/guard.py); None = off
         self.guard_flow = None
+        # called as checkpoint(stage, level, uv) after every pyramid level
+        # (utils/checkpoint.FlowCheckpointer); it reads the flow on the host
+        self.checkpoint = None
 
         self.pyramid_levels = 4
         self.pyramid_spacing = 2.0

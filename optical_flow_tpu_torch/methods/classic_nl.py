@@ -80,18 +80,24 @@ def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
     return uv
 
 
-def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool = False):
-    """The whole GNC + coarse-to-fine Classic+NL flow.
+def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool = False, checkpoint=None):
+    """The whole GNC + coarse-to-fine Classic+NL flow; ``checkpoint(stage,
+    level, uv)`` after every level, if given.
 
-    The reference's original-image pyramid feeds only an inert attribute,
-    so it is not built; the texture pyramids and the colour-guide pyramids are.
+    ``images`` (..., H, W, 2C), ``color`` (..., H, W[, C']) and ``uv``
+    (..., H, W, 2) may carry a leading batch axis: one program for B pairs
+    of one shape, every op on every item at once, each item normalised,
+    solved, stopped and guarded on its own.  The reference's original-image
+    pyramid feeds only an inert attribute, so it is not built; the texture
+    pyramids and the colour-guide pyramids are.
     """
-    proc = _preprocess_traced(plan.preprocess, images, plan.alp)
-    pyramid = build_pyramid(proc, plan.levels, plan.spacing)
-    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing)
+    nb = images.ndim - 3  # leading batch axes: images are (..., H, W, 2C)
+    proc = _preprocess_traced(plan.preprocess, images, plan.alp, nb)
+    pyramid = build_pyramid(proc, plan.levels, plan.spacing, nb)
+    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, nb)
     if plan.use_color:
-        color_pyr = build_pyramid(color, plan.levels, plan.spacing)
-        color_gnc_pyr = build_pyramid(color, plan.gnc_levels, plan.gnc_spacing)
+        color_pyr = build_pyramid(color, plan.levels, plan.spacing, nb)
+        color_gnc_pyr = build_pyramid(color, plan.gnc_levels, plan.gnc_spacing, nb)
     else:
         color_pyr = [None] * plan.levels
         color_gnc_pyr = [None] * plan.gnc_levels
@@ -108,6 +114,8 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
                 print(f"  Pyramid level: {level + 1}")
             uv = resample_flow(uv, shapes[level])
             uv = classic_nl_level_step(cfg, cur[level], ccur[level], uv, alpha)
+            if checkpoint is not None:
+                checkpoint(stage_idx, level, uv)
     return uv
 
 
@@ -201,4 +209,4 @@ class ClassicNLOpticalFlow(BAOpticalFlow):
             color = None  # the (1, 1, 3) placeholder of the preset table means "no colour"
         plan = self._make_nl_plan(sz, use_color=color is not None)
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
-        return classic_nl_flow_program(plan, images, color, uv, display=bool(self.display))
+        return classic_nl_flow_program(plan, images, color, uv, display=bool(self.display), checkpoint=self.checkpoint)

@@ -80,8 +80,9 @@ class HSFlowPlan:
     final_median: Optional[Tuple[int, int]]
 
 
-def hs_flow_program(plan: HSFlowPlan, images, uv, display: bool = False):
-    """The whole coarse-to-fine HS flow, then the final median pass."""
+def hs_flow_program(plan: HSFlowPlan, images, uv, display: bool = False, checkpoint=None):
+    """The whole coarse-to-fine HS flow, then the final median pass;
+    ``checkpoint(0, level, uv)`` after every level, if given."""
     if plan.texture:
         images = structure_texture_decomposition_rof(images)
     else:
@@ -92,6 +93,8 @@ def hs_flow_program(plan: HSFlowPlan, images, uv, display: bool = False):
             print(f"Pyramid level: {level + 1}")
         uv = resample_flow(uv, plan.shapes[level])
         uv = hs_level_step(plan.cfg, pyramid[level], uv)
+        if checkpoint is not None:
+            checkpoint(0, level, uv)
     if plan.final_median is not None:
         uv = median_pair(uv, plan.final_median)
     return uv
@@ -149,4 +152,4 @@ class HSOpticalFlow(BaseOpticalFlow):
         """Flow (H, W, 2) from the (H, W, 2) gray pair; HS has no colour guide."""
         sz = tuple(int(s) for s in images.shape[:2])
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
-        return hs_flow_program(self._make_plan(sz), images, uv, display=bool(self.display))
+        return hs_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint)

@@ -43,11 +43,11 @@ SIGNATURES = {
     # out: [SM count, shared memory a block may opt in to]
     "device_limits": [_P],
     # a11, a12, a22, wu_h, wu_v, wv_h, wv_v, b_u, b_v, x, work, partials,
-    # iters, H, W, rtol2, maxiter, stream
-    "cg_solve_f32": [_P] * 13 + [_I, _I, _F, _I, _P],
+    # iters, B, H, W, rtol2, maxiter, stream
+    "cg_solve_f32": [_P] * 13 + [_I, _I, _I, _F, _I, _P],
     # a11, a12, a22, wu_h, wu_v, wv_h, wv_v, b_u, b_v, x, zhalo, partials,
-    # iters, H, W, rtol2, maxiter, blocks, ppt, smem, stream
-    "cg_resident_f32": [_P] * 13 + [_I, _I, _F, _I, _I, _I, _I, _P],
+    # iters, B, H, W, rtol2, maxiter, bands an item, items a launch, ppt, smem, stream
+    "cg_resident_f32": [_P] * 13 + [_I, _I, _I, _F, _I, _I, _I, _I, _I, _P],
     # im, p, out, B, H, W, theta, n_iters, stream
     "rof_structure_f32": [_P, _P, _P, _I, _I, _I, _F, _I, _P],
     # im, halo, out, B, H, W, theta, n_iters, per_image, smem, stream

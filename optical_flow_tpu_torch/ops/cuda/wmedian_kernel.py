@@ -17,15 +17,28 @@ in every lane, so the group branches as one and results repeat), and stops
 each field's bisection exactly where 32 rounds would have ended.  A block
 stages only the window planes in shared memory.  The plain twin sorts
 (H, W, 225) patch stacks instead, ~1 GB of temporaries at 388x584.
+
+A leading batch axis is one launch (grid z is the item).  Windows wider
+than the register kernel's (hsz > 12), which the JAX package sends to its
+sort route, run a second kernel of the same source: one warp a pixel, the
+window's weights and keys in shared memory, the same sums and bisection.
 """
 from __future__ import annotations
+
+import math
 
 import torch
 
 from optical_flow_tpu_torch.ops.cuda.build import check, current_stream, load_library, require_cuda_f32
 
-MAX_HSZ = 12
-launches = 0  # kernel launches (one per call)
+MAX_HSZ = 12  # the register kernel's widest window; wider ones run the wide kernel
+launches = 0  # kernel launches (one per call, whatever the batch)
+
+
+def wide_fits(hsz: int) -> bool:
+    """Whether one warp's weights and keys of a (2 hsz + 1)^2 window fit the
+    H100's 232,448 B of shared memory a block (``wide_warps`` in csrc/wmedian.cu)."""
+    return 8 * (2 * hsz + 1) ** 2 <= 232448
 
 
 def _patch_stack(padded, H, W, k):
@@ -73,7 +86,11 @@ def wmedfilt_prepadded(u_pad, v_pad, occ_pad, color_pad, color_center, H, W, hsz
 
 
 def wmedian_plain(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz, sigma_i):
-    """The plain twin with the kernel's signature (guide channel-major)."""
+    """The plain twin with the kernel's signature (guide channel-major), item
+    by item over a leading batch axis."""
+    if u_pad.ndim == 3:
+        return torch.stack([wmedian_plain(*item, out_hw, hsz, sigma_i)
+                            for item in zip(u_pad, v_pad, occ_pad, guide_pad)])
     H, W = out_hw
     color_pad = guide_pad.permute(1, 2, 0)
     color_center = color_pad[hsz : hsz + H, hsz : hsz + W]
@@ -81,30 +98,34 @@ def wmedian_plain(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz, sigma_i):
 
 
 def wmedian(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz: int, sigma_i: float):
-    """Weighted median of both flow fields -> (H, W, 2).
+    """Weighted median of both flow fields -> (..., H, W, 2).
 
-    ``u_pad``, ``v_pad``, ``occ_pad``: (H+2h, W+2h) mirror-padded fields;
-    ``guide_pad``: (C, H+2h, W+2h) padded guide.  CPU tensors run the plain
-    twin; contiguous float32 CUDA tensors run the kernel (hsz <= 12);
-    anything else raises.
+    ``u_pad``, ``v_pad``, ``occ_pad``: (..., H+2h, W+2h) mirror-padded
+    fields; ``guide_pad``: (..., C, H+2h, W+2h) padded guide, with the same
+    leading batch axes.  CPU tensors run the plain twin; contiguous float32
+    CUDA tensors run the kernel (the wide kernel above hsz 12); anything else
+    raises.
     """
     global launches
     if u_pad.device.type == "cpu":
         return wmedian_plain(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz, sigma_i)
     require_cuda_f32("wmedian", u_pad, v_pad, occ_pad, guide_pad)
     hsz = int(hsz)
-    if not 0 <= hsz <= MAX_HSZ:
-        raise ValueError(f"wmedian: the kernel covers hsz <= {MAX_HSZ}, got {hsz}")
+    if hsz < 0 or not wide_fits(hsz):
+        raise ValueError(f"wmedian: hsz must be >= 0 and its window fit one warp's shared memory, got {hsz}")
     H, W = int(out_hw[0]), int(out_hw[1])
-    C = guide_pad.shape[0]
-    for t in (u_pad, v_pad, occ_pad, guide_pad[0]):
-        if tuple(t.shape) != (H + 2 * hsz, W + 2 * hsz):
-            raise ValueError(f"wmedian: padded planes must be {(H + 2 * hsz, W + 2 * hsz)}, got {tuple(t.shape)}")
+    batch = tuple(u_pad.shape[:-2])
+    C = guide_pad.shape[-3]
+    for t in (u_pad, v_pad, occ_pad, guide_pad[..., 0, :, :]):
+        if tuple(t.shape) != (*batch, H + 2 * hsz, W + 2 * hsz):
+            raise ValueError(f"wmedian: padded planes must be {(*batch, H + 2 * hsz, W + 2 * hsz)}, "
+                             f"got {tuple(t.shape)}")
+    B = math.prod(batch)
     lib = load_library()
-    out = torch.empty((H, W, 2), dtype=torch.float32, device=u_pad.device)
+    out = torch.empty((*batch, H, W, 2), dtype=torch.float32, device=u_pad.device)
     err = lib.wmedian_f32(
         u_pad.data_ptr(), v_pad.data_ptr(), occ_pad.data_ptr(), guide_pad.data_ptr(), out.data_ptr(),
-        1, C, H, W, hsz, float(1.0 / (2.0 * sigma_i**2)), current_stream(u_pad.device),
+        B, C, H, W, hsz, float(1.0 / (2.0 * sigma_i**2)), current_stream(u_pad.device),
     )
     check(err, "wmedian_f32")
     launches += 1

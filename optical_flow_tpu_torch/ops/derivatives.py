@@ -10,7 +10,9 @@ Three interpolations, as in the JAX package:
 
 Everything that depends only on the images is built once per level
 (:func:`precompute_warp`); each warp iteration (:func:`warp_deriv`) is a
-gather plus the interpolation's arithmetic.
+gather plus the interpolation's arithmetic.  Images and flows may carry a
+leading batch axis, (B, H, W, 2C) and (B, H, W, 2); every gather reads each
+item's own planes.
 """
 from __future__ import annotations
 
@@ -21,7 +23,14 @@ import numpy as np
 import torch
 
 from optical_flow_tpu_torch.ops.filters import correlate2d
-from optical_flow_tpu_torch.ops.interp import sample_bilinear, sample_cubic_spline, spline_coeffs_2d, tap_index
+from optical_flow_tpu_torch.ops.interp import (
+    gather_points,
+    per_item,
+    sample_bilinear,
+    sample_cubic_spline,
+    spline_coeffs_2d,
+    tap_index,
+)
 
 DEFAULT_DERIV_FILTER = np.array([1.0, -8.0, 0.0, 8.0, -1.0]) / 12.0
 
@@ -57,16 +66,16 @@ class WarpPrecompute(NamedTuple):
 
     method: str
     blend: float
-    im1: tuple  # (H, W) per channel
+    im1: tuple  # (..., H, W) per channel
     I1x: tuple
     I1y: tuple
-    # 'cubic': spline coefficients of (im2, I2x, I2y); 'bi-linear': the images; (3, H, W) per channel
+    # 'cubic': spline coefficients of (im2, I2x, I2y); 'bi-linear': the images; (..., 3, H, W) per channel
     warp_tables: tuple
     hermite_tables: tuple  # 'bi-cubic': (Z, DX, DY, DXY) of frame 2, per channel
 
 
 def precompute_warp(images, interp_method: str = "cubic", deriv_filter=None, blend: float = 0.5):
-    """Build all flow-independent tables for one pyramid level of (H, W, 2C) ``images``."""
+    """Build all flow-independent tables for one pyramid level of (..., H, W, 2C) ``images``."""
     if interp_method not in ("bi-cubic", "cubic", "bi-linear"):
         raise ValueError(f"Unknown interpolation method: {interp_method}")
     if deriv_filter is None:
@@ -74,9 +83,9 @@ def precompute_warp(images, interp_method: str = "cubic", deriv_filter=None, ble
     f = np.asarray(deriv_filter, dtype=np.float64)
     fx, fy, fxy = f.reshape(1, -1), f.reshape(-1, 1), np.outer(f, f)
 
-    nc = images.shape[2] // 2
-    im1s = tuple(images[:, :, c] for c in range(nc))
-    im2s = tuple(images[:, :, nc + c] for c in range(nc))
+    nc = images.shape[-1] // 2
+    im1s = tuple(images[..., c] for c in range(nc))
+    im2s = tuple(images[..., nc + c] for c in range(nc))
     warp_tables, hermite_tables = (), ()
     if interp_method == "bi-cubic":
         hermite_tables = tuple(
@@ -85,7 +94,7 @@ def precompute_warp(images, interp_method: str = "cubic", deriv_filter=None, ble
         )
     else:
         warp_tables = tuple(
-            torch.stack([c, correlate2d(c, fx, "reflect"), correlate2d(c, fy, "reflect")]) for c in im2s
+            torch.stack([c, correlate2d(c, fx, "reflect"), correlate2d(c, fy, "reflect")], dim=-3) for c in im2s
         )
         if interp_method == "cubic":
             warp_tables = tuple(spline_coeffs_2d(t) for t in warp_tables)
@@ -105,9 +114,19 @@ def _w_bicubic(dtype, device) -> torch.Tensor:
     return torch.as_tensor(W_BICUBIC, dtype=dtype, device=device)
 
 
-def hermite_eval(taps, ax, ay):
-    """(val, d/dx, d/dy) from (16, ...) corner taps and in-cell offsets (ax, ay)."""
-    C = torch.tensordot(_w_bicubic(taps.dtype, taps.device), taps, dims=1)
+def hermite_eval(taps, ax, ay, batch_dims: int = 0):
+    """(val, d/dx, d/dy) from (16, ...) corner taps and in-cell offsets (ax, ay) of shape (...).
+
+    With ``batch_dims`` leading batch axes after the 16 (taps (16, *batch,
+    h, w)), the coefficient product runs item by item (``per_item``), so each
+    item gets the bits of an unbatched call.
+    """
+    Wb = _w_bicubic(taps.dtype, taps.device)
+    if batch_dims:
+        C = per_item(lambda t: torch.tensordot(Wb, t, dims=1), taps.movedim(0, batch_dims), batch_dims)
+        C = C.movedim(batch_dims, 0)
+    else:
+        C = torch.tensordot(Wb, taps, dims=1)
 
     ax_p = [torch.ones_like(ax), ax, ax * ax, ax * ax * ax]
     ay_p = [torch.ones_like(ay), ay, ay * ay, ay * ay * ay]
@@ -131,37 +150,43 @@ def hermite_eval(taps, ax, ay):
 def _hermite_bicubic(tables, yq, xq):
     """Hermite bicubic sample + analytical d/dx, d/dy at 0-based (yq, xq).
 
-    Returns (val, vx, vy, oob); a point is out once its ceil neighbour
-    leaves the grid, i.e. x >= W-1 counts as out.  The 16 corner taps read
-    the edge-padded tables at the clamped base index, which is the same as
-    clamping each corner's index.
+    ``tables`` are four (*batch, H, W) planes and (yq, xq) (*batch, h, w):
+    each item's tables are read at its own points.  Returns (val, vx, vy,
+    oob); a point is out once its ceil neighbour leaves the grid, i.e.
+    x >= W-1 counts as out.  The 16 corner taps read the edge-padded tables
+    at the clamped base index, which is the same as clamping each corner's
+    index.
     """
-    H, W = tables[0].shape
+    nb = xq.ndim - 2
+    H, W = tables[0].shape[-2:]
     fx = torch.floor(xq)
     fy = torch.floor(yq)
     oob = (fx < 0) | (fx + 1 > W - 1) | (fy < 0) | (fy + 1 > H - 1)
 
     iy0 = tap_index(fy, H)
     ix0 = tap_index(fx, W)
-    flat = torch.stack(tables).reshape(4, H * W)  # (Z, DX, DY, DXY)
+    flat = torch.stack(tables, dim=-3).reshape(*xq.shape[:nb], 4, H * W)  # (Z, DX, DY, DXY)
     corners = torch.stack(
-        [torch.clamp(iy0 + a, max=H - 1) * W + torch.clamp(ix0 + b, max=W - 1) for a, b in HERMITE_CORNER_SHIFTS]
-    ).reshape(4, -1)
-    taps = flat[:, corners].reshape(16, *xq.shape)  # table-major, then corner
-    val, vx, vy = hermite_eval(taps, xq - fx, yq - fy)
+        [torch.clamp(iy0 + a, max=H - 1) * W + torch.clamp(ix0 + b, max=W - 1) for a, b in HERMITE_CORNER_SHIFTS],
+        dim=nb,
+    )
+    # (*batch, 4 tables, 4 corners, h, w) -> (16, *batch, h, w): table-major, then corner
+    taps = gather_points(flat, corners, nb).flatten(nb, nb + 1).movedim(nb, 0)
+    val, vx, vy = hermite_eval(taps, xq - fx, yq - fy, nb)
     return val, vx, vy, oob
 
 
 def warp_deriv(pre: WarpPrecompute, uv):
-    """Warp frame 2 by ``uv`` and return (It, Ix, Iy): (H, W) for one channel, else (H, W, C)."""
-    H, W = uv.shape[:2]
+    """Warp frame 2 by ``uv`` (..., H, W, 2) and return (It, Ix, Iy): (..., H, W)
+    for one channel, else (..., H, W, C)."""
+    H, W = uv.shape[-3:-1]
     ygrid, xgrid = torch.meshgrid(
         torch.arange(H, dtype=uv.dtype, device=uv.device),
         torch.arange(W, dtype=uv.dtype, device=uv.device),
         indexing="ij",
     )
-    xq = xgrid + uv[:, :, 0]
-    yq = ygrid + uv[:, :, 1]
+    xq = xgrid + uv[..., 0]
+    yq = ygrid + uv[..., 1]
     if pre.method != "bi-cubic":
         # the strictly-outside mask of the 'cubic' and 'bi-linear' routes; the
         # Hermite route masks with its own, which counts x >= W-1 as outside
@@ -174,10 +199,10 @@ def warp_deriv(pre: WarpPrecompute, uv):
         if pre.method == "bi-cubic":
             warp, wx, wy, mask = _hermite_bicubic(pre.hermite_tables[c], yq, xq)
         elif pre.method == "cubic":
-            warp, wx, wy = sample_cubic_spline(pre.warp_tables[c], yq, xq)[0]
+            warp, wx, wy = sample_cubic_spline(pre.warp_tables[c], yq, xq)[0].unbind(-3)
             mask = B
         else:
-            warp, wx, wy = (sample_bilinear(t, yq, xq, mode="nearest") for t in pre.warp_tables[c])
+            warp, wx, wy = (sample_bilinear(t, yq, xq, mode="nearest") for t in pre.warp_tables[c].unbind(-3))
             mask = B
         It = warp - pre.im1[c]
         Ix = blend * wx + (1 - blend) * pre.I1x[c]
@@ -188,4 +213,4 @@ def warp_deriv(pre: WarpPrecompute, uv):
 
     if len(Its) == 1:
         return Its[0], Ixs[0], Iys[0]
-    return torch.stack(Its, dim=2), torch.stack(Ixs, dim=2), torch.stack(Iys, dim=2)
+    return torch.stack(Its, dim=-1), torch.stack(Ixs, dim=-1), torch.stack(Iys, dim=-1)

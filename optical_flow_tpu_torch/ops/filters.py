@@ -71,11 +71,12 @@ def correlate2d(im, kernel, boundary: str = "reflect"):
     return out
 
 
-def correlate2d_multi(im, kernel, boundary: str = "reflect"):
-    """Channel-wise :func:`correlate2d` for (H, W) or (H, W, C) inputs."""
-    if im.ndim == 2:
+def correlate2d_multi(im, kernel, boundary: str = "reflect", batch_dims: int = 0):
+    """Channel-wise :func:`correlate2d` for (H, W) or (H, W, C) inputs after
+    ``batch_dims`` leading batch axes."""
+    if im.ndim - batch_dims == 2:
         return correlate2d(im, kernel, boundary)
-    return correlate2d(im.permute(2, 0, 1), kernel, boundary).permute(1, 2, 0)
+    return correlate2d(im.movedim(-1, -3), kernel, boundary).movedim(-3, -1)
 
 
 def median_filter2d(im, size, boundary: str = "reflect"):

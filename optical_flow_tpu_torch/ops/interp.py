@@ -72,28 +72,46 @@ def tap_index(f, n: int):
     return torch.clamp(torch.nan_to_num(f, nan=0.0), 0, n - 1).long()
 
 
+def gather_points(planes, idx, batch_dims: int):
+    """``planes`` (*batch, [K,] P) read at ``idx`` (*batch, ...): each item at its
+    own indices, every one of its K planes at the same ones; -> (*batch, [K,] ...)."""
+    batch = idx.shape[:batch_dims]
+    flat_idx = idx.reshape(*batch, -1)
+    if planes.ndim - batch_dims == 2:  # K planes share each item's indices
+        flat_idx = flat_idx.unsqueeze(-2).expand(*batch, planes.shape[-2], flat_idx.shape[-1])
+        return torch.gather(planes, -1, flat_idx).reshape(*planes.shape[:-1], *idx.shape[batch_dims:])
+    return torch.gather(planes, -1, flat_idx).reshape(idx.shape)
+
+
 def sample_cubic_spline(coeffs, ys, xs):
     """Evaluate cubic B-spline surfaces at 0-based (ys, xs).
 
-    ``coeffs`` is (H, W) or a stack (K, H, W) of coefficient planes (see
-    :func:`spline_coeffs_2d`) sampled at the same points.  Returns
-    ``(values, oob)``: values (..., *ys.shape) and the mask of strictly
+    ``ys``, ``xs`` are (*batch, h, w); ``coeffs`` is (*batch, H, W) or a stack
+    (*batch, K, H, W) of coefficient planes (see :func:`spline_coeffs_2d`),
+    each item's planes sampled at that item's points.  Returns
+    ``(values, oob)``: values (*batch, [K,] h, w) and the mask of strictly
     outside points, for the caller to fill.  The planes are padded by 2
     with numpy-'reflect' (``"mirror"`` here: the edge is not repeated), the
     4×4 taps are read at the clamped base index, and their weights come from
     the unclamped offsets.
     """
+    nb = ys.ndim - 2
     H, W = coeffs.shape[-2:]
     padded = pad2d(coeffs, 2, 2, 2, 2, "mirror")
     flat = padded.reshape(*coeffs.shape[:-2], -1)
     fy = torch.floor(ys)
     fx = torch.floor(xs)
     base = tap_index(fy, H) * (W + 4) + tap_index(fx, W)
-    idx = torch.stack([base + (dy + 2) * (W + 4) + (dx + 2) for dy in _SPLINE_OFFSETS for dx in _SPLINE_OFFSETS])
-    taps = flat[..., idx.reshape(-1)].reshape(*coeffs.shape[:-2], 16, *ys.shape).unbind(-1 - ys.ndim)
+    idx = torch.stack(
+        [base + (dy + 2) * (W + 4) + (dx + 2) for dy in _SPLINE_OFFSETS for dx in _SPLINE_OFFSETS], dim=nb
+    )
+    taps = gather_points(flat, idx, nb).unbind(-3)
 
     wy = [_bspline3(ys - (fy + dy)) for dy in _SPLINE_OFFSETS]
     wx = [_bspline3(xs - (fx + dx)) for dx in _SPLINE_OFFSETS]
+    if coeffs.ndim - nb == 3:  # the weights broadcast over the K planes
+        wy = [w.unsqueeze(-3) for w in wy]
+        wx = [w.unsqueeze(-3) for w in wx]
     out = torch.zeros_like(taps[0])
     for a in range(4):
         for b in range(4):
@@ -103,12 +121,15 @@ def sample_cubic_spline(coeffs, ys, xs):
 
 
 def sample_bilinear(im, ys, xs, mode: str = "nearest"):
-    """Bilinear sampling of (H, W) ``im`` at 0-based (ys, xs).
+    """Bilinear sampling of (..., H, W) ``im`` at 0-based (ys, xs) of
+    (..., h, w): each item of a leading batch axis at its own points.
 
     ``mode='nearest'`` clamps coordinates to the image; ``mode='constant'``
     also returns the mask of strictly-outside points.
     """
-    H, W = im.shape
+    nb = im.ndim - 2
+    H, W = im.shape[-2:]
+    flat = im.reshape(*im.shape[:-2], H * W)
     ysc = torch.clamp(ys, 0.0, H - 1.0)
     xsc = torch.clamp(xs, 0.0, W - 1.0)
     y0f = torch.floor(ysc)
@@ -119,7 +140,7 @@ def sample_bilinear(im, ys, xs, mode: str = "nearest"):
     x1 = torch.clamp(x0 + 1, max=W - 1)
     ay = ysc - y0f
     ax = xsc - x0f
-    v00, v01, v10, v11 = im[y0, x0], im[y0, x1], im[y1, x0], im[y1, x1]
+    v00, v01, v10, v11 = (gather_points(flat, r * W + c, nb) for r, c in ((y0, x0), (y0, x1), (y1, x0), (y1, x1)))
     top = v00 * (1.0 - ax) + v01 * ax
     bot = v10 * (1.0 - ax) + v11 * ax
     val = top * (1.0 - ay) + bot * ay
@@ -153,16 +174,34 @@ def _resize_operator(n_in: int, n_out: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(matlab_resize_matrix(n_in, n_out), dtype=dtype, device=device)
 
 
-def resize_planes(x, out_hw):
-    """MATLAB bilinear resize of the last two axes of ``x`` (..., H, W)."""
+def per_item(fn, x, batch_dims: int):
+    """``fn`` of each item of ``x`` (its leading ``batch_dims`` axes), stacked.
+
+    Each item is first copied to a fresh tensor with the item's own strides:
+    cuBLAS chooses a product's kernel, and so its rounding, from the shapes,
+    the strides and the pointers' alignment, so an item then gets the bits
+    of an unbatched call, and a batched flow its items' single-pair flows.
+    """
+    lead = x.shape[:batch_dims]
+    items = x.reshape(-1, *x.shape[batch_dims:])
+    out = torch.stack([fn(torch.empty_like(item).copy_(item)) for item in items.unbind(0)])
+    return out.reshape(*lead, *out.shape[1:])
+
+
+def resize_planes(x, out_hw, batch_dims: int = 0):
+    """MATLAB bilinear resize of the last two axes of ``x`` (..., H, W); with
+    ``batch_dims`` leading batch axes, item by item (see :func:`per_item`)."""
+    if batch_dims:
+        return per_item(lambda item: resize_planes(item, out_hw), x, batch_dims)
     H, W = x.shape[-2:]
     Rh = _resize_operator(H, int(out_hw[0]), x.dtype, x.device)
     Rw = _resize_operator(W, int(out_hw[1]), x.dtype, x.device)
     return Rh @ x @ Rw.T
 
 
-def matlab_imresize_bilinear(im, out_hw):
-    """2-D MATLAB-convention bilinear resize for (H, W) or (H, W, C)."""
-    if im.ndim == 2:
-        return resize_planes(im, out_hw)
-    return resize_planes(im.permute(2, 0, 1), out_hw).permute(1, 2, 0)
+def matlab_imresize_bilinear(im, out_hw, batch_dims: int = 0):
+    """2-D MATLAB-convention bilinear resize for (H, W) or (H, W, C) after
+    ``batch_dims`` leading batch axes."""
+    if im.ndim - batch_dims == 2:
+        return resize_planes(im, out_hw, batch_dims)
+    return resize_planes(im.movedim(-1, -3), out_hw, batch_dims).movedim(-3, -1)

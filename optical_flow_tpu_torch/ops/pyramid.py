@@ -35,13 +35,15 @@ def pyramid_filter(spacing: float) -> np.ndarray:
     return fspecial_gaussian(int(ksize), smooth_sigma)
 
 
-def build_pyramid(images, levels: int, spacing: float):
-    """List of (H, W[, C]) levels, finest first: smooth (reflect), then resize."""
-    shapes = pyramid_shapes(images.shape[:2], levels, 1.0 / spacing)
+def build_pyramid(images, levels: int, spacing: float, batch_dims: int = 0):
+    """List of (H, W[, C]) levels after ``batch_dims`` leading batch axes,
+    finest first: smooth (reflect), then resize."""
+    shapes = pyramid_shapes(images.shape[batch_dims : batch_dims + 2], levels, 1.0 / spacing)
     f = pyramid_filter(spacing)
     pyramid = [images]
     current = images
     for lvl in range(1, levels):
-        current = matlab_imresize_bilinear(correlate2d_multi(current, f, "reflect"), shapes[lvl])
+        smooth = correlate2d_multi(current, f, "reflect", batch_dims)
+        current = matlab_imresize_bilinear(smooth, shapes[lvl], batch_dims)
         pyramid.append(current)
     return pyramid

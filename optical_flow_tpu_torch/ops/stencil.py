@@ -2,7 +2,8 @@
 
 The system ``A x = b`` is held as nine (H, W) coefficient planes
 (:class:`FlowSystem`): a per-pixel 2x2 data block plus the edge weights of
-two 4-neighbour graph Laplacians, and the two right-hand-side planes.
+two 4-neighbour graph Laplacians, and the two right-hand-side planes.  The
+planes may carry leading batch axes, (B, H, W): one system per item.
 """
 from __future__ import annotations
 
@@ -54,12 +55,12 @@ def _shift_down0(x):
 
 def forward_diff_h(x):
     """``x[i, j+1] - x[i, j]`` stored at (i, j); 0 in the last column."""
-    return F.pad(x[:, 1:] - x[:, :-1], (0, 1))
+    return F.pad(x[..., :, 1:] - x[..., :, :-1], (0, 1))
 
 
 def forward_diff_v(x):
     """``x[i+1, j] - x[i, j]`` stored at (i, j); 0 in the last row."""
-    return F.pad(x[1:, :] - x[:-1, :], (0, 0, 0, 1))
+    return F.pad(x[..., 1:, :] - x[..., :-1, :], (0, 0, 0, 1))
 
 
 def weighted_laplacian_apply(w_h, w_v, x):
@@ -84,8 +85,8 @@ def system_apply_split(sys: FlowSystem, xu, xv):
 
 
 def system_apply(sys: FlowSystem, x):
-    """``A @ x`` for ``x`` of shape (H, W, 2)."""
-    yu, yv = system_apply_split(sys, x[:, :, 0], x[:, :, 1])
+    """``A @ x`` for ``x`` of shape (..., H, W, 2)."""
+    yu, yv = system_apply_split(sys, x[..., 0], x[..., 1])
     return torch.stack([yu, yv], dim=-1)
 
 
@@ -94,8 +95,10 @@ def blend_systems(alpha, sys_q: FlowSystem, sys_r: FlowSystem) -> FlowSystem:
     return FlowSystem(*[alpha * q + (1.0 - alpha) * r for q, r in zip(sys_q, sys_r)])
 
 
-def _channel_mean(x):
-    return torch.mean(x, dim=2) if x.ndim == 3 else x
+def _channel_mean(x, batch_dims: int = 0):
+    """Mean over the channel axis of (H, W, C) after ``batch_dims`` leading
+    batch axes; (H, W) planes pass through."""
+    return torch.mean(x, dim=-1) if x.ndim - batch_dims == 3 else x
 
 
 def build_irls_system(uv, duv, It, Ix, Iy, rho_spatial_u, rho_spatial_v, rho_data, lam) -> FlowSystem:
@@ -105,10 +108,11 @@ def build_irls_system(uv, duv, It, Ix, Iy, rho_spatial_u, rho_spatial_v, rho_dat
     the data term is linearized as ``It + Ix du + Iy dv`` with channel-mean
     reduction; ``lam`` is folded into the edge weights and the RHS.
     """
-    u = uv[:, :, 0]
-    v = uv[:, :, 1]
-    up = u + duv[:, :, 0]
-    vp = v + duv[:, :, 1]
+    nb = uv.ndim - 3  # leading batch axes: uv is (..., H, W, 2)
+    u = uv[..., 0]
+    v = uv[..., 1]
+    up = u + duv[..., 0]
+    vp = v + duv[..., 1]
 
     wu_h = rho_spatial_u[0].deriv_over_x(forward_diff_h(up))
     wu_v = rho_spatial_u[1].deriv_over_x(forward_diff_v(up))
@@ -116,24 +120,24 @@ def build_irls_system(uv, duv, It, Ix, Iy, rho_spatial_u, rho_spatial_v, rho_dat
     wv_v = rho_spatial_v[1].deriv_over_x(forward_diff_v(vp))
     # zero the dangling edges (rows of F that are identically zero)
     mask_h = torch.ones_like(wu_h)
-    mask_h[:, -1] = 0.0
+    mask_h[..., :, -1] = 0.0
     mask_v = torch.ones_like(wu_v)
-    mask_v[-1, :] = 0.0
+    mask_v[..., -1, :] = 0.0
     wu_h = lam * wu_h * mask_h
     wv_h = lam * wv_h * mask_h
     wu_v = lam * wu_v * mask_v
     wv_v = lam * wv_v * mask_v
 
-    if It.ndim == 3:
-        It_lin = It + Ix * duv[:, :, 0:1] + Iy * duv[:, :, 1:2]
+    if It.ndim - nb == 3:
+        It_lin = It + Ix * duv[..., 0:1] + Iy * duv[..., 1:2]
     else:
-        It_lin = It + Ix * duv[:, :, 0] + Iy * duv[:, :, 1]
-    pp_d = _channel_mean(rho_data.deriv_over_x(It_lin))
-    Ix2 = _channel_mean(Ix**2)
-    Iy2 = _channel_mean(Iy**2)
-    Ixy = _channel_mean(Ix * Iy)
-    Itx = _channel_mean(It_lin * Ix)
-    Ity = _channel_mean(It_lin * Iy)
+        It_lin = It + Ix * duv[..., 0] + Iy * duv[..., 1]
+    pp_d = _channel_mean(rho_data.deriv_over_x(It_lin), nb)
+    Ix2 = _channel_mean(Ix**2, nb)
+    Iy2 = _channel_mean(Iy**2, nb)
+    Ixy = _channel_mean(Ix * Iy, nb)
+    Itx = _channel_mean(It_lin * Ix, nb)
+    Ity = _channel_mean(It_lin * Iy, nb)
 
     a11 = pp_d * Ix2
     a12 = pp_d * Ixy
@@ -150,27 +154,28 @@ def build_hs_system(uv, It, Ix, Iy, lam, sigmaD2, sigmaS2) -> FlowSystem:
     column for ``wh`` and in the last row for ``wv``) and
     ``b = -(lam / sigmaS2) L uv - [Itx; Ity] / sigmaD2``.
     """
-    Ix2 = _channel_mean(Ix**2) / sigmaD2
-    Iy2 = _channel_mean(Iy**2) / sigmaD2
-    Ixy = _channel_mean(Ix * Iy) / sigmaD2
-    Itx = _channel_mean(It * Ix) / sigmaD2
-    Ity = _channel_mean(It * Iy) / sigmaD2
+    nb = uv.ndim - 3
+    Ix2 = _channel_mean(Ix**2, nb) / sigmaD2
+    Iy2 = _channel_mean(Iy**2, nb) / sigmaD2
+    Ixy = _channel_mean(Ix * Iy, nb) / sigmaD2
+    Itx = _channel_mean(It * Ix, nb) / sigmaD2
+    Ity = _channel_mean(It * Iy, nb) / sigmaD2
 
     w_edge = lam / sigmaS2
     wh = torch.full_like(Ix2, w_edge)
-    wh[:, -1] = 0.0
+    wh[..., :, -1] = 0.0
     wv = torch.full_like(Ix2, w_edge)
-    wv[-1, :] = 0.0
+    wv[..., -1, :] = 0.0
 
-    b_u = -weighted_laplacian_apply(wh, wv, uv[:, :, 0]) - Itx
-    b_v = -weighted_laplacian_apply(wh, wv, uv[:, :, 1]) - Ity
+    b_u = -weighted_laplacian_apply(wh, wv, uv[..., 0]) - Itx
+    b_v = -weighted_laplacian_apply(wh, wv, uv[..., 1]) - Ity
     return FlowSystem(Ix2, Ixy, Iy2, wh, wv, wh, wv, b_u, b_v)
 
 
 def add_coupling(sys: FlowSystem, weight) -> FlowSystem:
-    """Add a per-pixel diagonal coupling term ``weight`` (H, W, 2) to a11 and a22.
+    """Add a per-pixel diagonal coupling term ``weight`` (..., H, W, 2) to a11 and a22.
 
     Alt-BA's coupling of the flow to its auxiliary field; the caller updates
     the right-hand side.
     """
-    return sys._replace(a11=sys.a11 + weight[:, :, 0], a22=sys.a22 + weight[:, :, 1])
+    return sys._replace(a11=sys.a11 + weight[..., 0], a22=sys.a22 + weight[..., 1])

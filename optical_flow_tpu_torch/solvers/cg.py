@@ -6,7 +6,8 @@ PCG at rtol 1e-7 / maxiter 1000.  Both go through
 :func:`~optical_flow_tpu_torch.ops.cuda.cg_kernel.cg_solve`: the whole-PCG
 kernel on the card, the plain twin :func:`pcg_solve_split` on the CPU.
 ``'sor'`` is red-black SOR (:func:`~optical_flow_tpu_torch.solvers.sor.sor_solve`,
-plain PyTorch on either device).
+plain PyTorch on either device).  PCG takes planes with leading batch axes,
+one system an item; SOR one system only.
 """
 from __future__ import annotations
 
@@ -28,11 +29,13 @@ def solve_flow_system(
     sor_max_iters: int = 10000,
     sor_tol: float = 1e-2,
 ):
-    """Solve a :class:`FlowSystem` for the (H, W, 2) update field, from x0 = 0."""
+    """Solve a :class:`FlowSystem` for the (..., H, W, 2) update field, from x0 = 0."""
     if solver == "pcg":
         return cg_solve(sys, pcg_rtol, pcg_maxiter)
     if solver == "backslash":
         return cg_solve(sys, backslash_rtol, backslash_maxiter)
     if solver == "sor":
+        if sys.a11.ndim > 2:
+            raise NotImplementedError("SOR with a batch axis (per-item convergence) is ROADMAP item 13b")
         return sor_solve(sys, sor_omega, sor_max_iters, sor_tol)
     raise ValueError(f"Unknown solver: {solver}")

@@ -1,7 +1,11 @@
 """MATLAB-compat numeric helpers (port of ``optical_flow_tpu/utils/compat.py``).
 
 Tensor functions keep the JAX package's (H, W) / (H, W, C) layouts and its
-operation order, so float64 results agree to machine precision.
+operation order, so float64 results agree to machine precision.  A leading
+batch axis is optional; the functions that reduce over an item (its min and
+max, its Lab range) take the number of leading batch axes explicitly
+(``batch_dims``), since an (H, W, C) image and a (B, H, W) batch of planes
+both have three axes.
 """
 from __future__ import annotations
 
@@ -14,15 +18,21 @@ def matlab_round(x: float) -> int:
     return int(np.floor(x + 0.5))
 
 
-def scale_image(im, vlow, vhigh, ilow=None, ihigh=None):
+def _item_dims(im, batch_dims: int):
+    """The axes of one item of ``im`` after ``batch_dims`` leading batch axes."""
+    return tuple(range(batch_dims, im.ndim))
+
+
+def scale_image(im, vlow, vhigh, ilow=None, ihigh=None, batch_dims: int = 0):
     """Linearly rescale ``im`` from [ilow, ihigh] to [vlow, vhigh].
 
-    Omitted source bounds are the global min/max across *all* channels.
+    Omitted source bounds are the min/max of each item across *all* its
+    channels: of the whole tensor without a batch axis.
     """
     if ilow is None:
-        ilow = im.min()
+        ilow = im.amin(_item_dims(im, batch_dims), keepdim=True)
     if ihigh is None:
-        ihigh = im.max()
+        ihigh = im.amax(_item_dims(im, batch_dims), keepdim=True)
     span = torch.as_tensor(ihigh - ilow, dtype=im.dtype, device=im.device)
     safe = torch.where(span == 0, torch.ones_like(span), span)
     scaled = (im - ilow) / safe * (vhigh - vlow) + vlow
@@ -44,7 +54,7 @@ def fspecial_gaussian(size, sigma) -> np.ndarray:
 
 
 def rgb2gray(im):
-    """MATLAB ``double(rgb2gray(uint8(im)))``.
+    """MATLAB ``double(rgb2gray(uint8(im)))`` of (..., H, W, 3) RGB.
 
     Both roundings are ``floor(x + 0.5)`` (half away from zero for these
     non-negative values), not ``torch.round``, which rounds half to even.
@@ -52,7 +62,7 @@ def rgb2gray(im):
     if im.ndim == 2:
         return im
     q = torch.clamp(torch.floor(im + 0.5), 0, 255)
-    gray = 0.2989 * q[:, :, 0] + 0.5870 * q[:, :, 1] + 0.1140 * q[:, :, 2]
+    gray = 0.2989 * q[..., 0] + 0.5870 * q[..., 1] + 0.1140 * q[..., 2]
     return torch.floor(gray + 0.5)
 
 
@@ -67,9 +77,16 @@ def _cbrt(t):
 
 
 def rgb2lab(im):
-    """RGB -> CIE Lab with BT.709 primaries and a D65 white point."""
-    R, G, B = im[:, :, 0], im[:, :, 1], im[:, :, 2]
-    needs_norm = torch.maximum(torch.maximum(R.max(), G.max()), B.max()) > 1.0
+    """(..., H, W, 3) RGB -> CIE Lab with BT.709 primaries and a D65 white point.
+
+    Each (H, W, 3) image is divided by 255 if any of its values exceeds 1.
+    """
+    R, G, B = im[..., 0], im[..., 1], im[..., 2]
+
+    def peak(c):
+        return c.amax((-2, -1), keepdim=True)
+
+    needs_norm = torch.maximum(torch.maximum(peak(R), peak(G)), peak(B)) > 1.0
     inv255 = torch.full((), 1.0 / 255.0, dtype=im.dtype, device=im.device)
     scale = torch.where(needs_norm, inv255, torch.ones_like(inv255))
     R, G, B = R * scale, G * scale, B * scale
@@ -88,12 +105,19 @@ def rgb2lab(im):
     L = torch.where(YT, 116.0 * Y3 - 16.0, 903.3 * Y)
     a = 500.0 * (fX - fY)
     b = 200.0 * (fY - fZ)
-    return torch.stack([L, a, b], dim=2)
+    return torch.stack([L, a, b], dim=-1)
 
 
-def preprocess_color_pair(im1, im2):
-    """Grayscale pair (H, W, 2) + the [0, 255]-scaled Lab guide (H, W, 3)."""
-    gray = torch.stack([rgb2gray(im1), rgb2gray(im2)], dim=2)
+def preprocess_color_pair(im1, im2, batch_dims: int = 0):
+    """Grayscale pair (..., H, W, 2) + the [0, 255]-scaled Lab guide (..., H, W, 3)
+    of (..., H, W, 3) RGB frames; each Lab channel of each item is rescaled on its own."""
+    gray = torch.stack([rgb2gray(im1), rgb2gray(im2)], dim=-1)
     lab = rgb2lab(im1)
-    lab = torch.stack([scale_image(lab[:, :, j], 0, 255) for j in range(lab.shape[2])], dim=2)
+    lab = torch.stack([scale_image(lab[..., j], 0, 255, batch_dims=batch_dims) for j in range(lab.shape[-1])], dim=-1)
     return gray, lab
+
+
+def preprocess_color_batch(im1_batch, im2_batch):
+    """(B, H, W, 3) RGB pairs -> the (B, H, W, 2) gray pairs and (B, H, W, 3)
+    [0, 255]-Lab guides: :func:`preprocess_color_pair` of every pair."""
+    return preprocess_color_pair(im1_batch, im2_batch, batch_dims=1)

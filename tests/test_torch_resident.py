@@ -71,7 +71,7 @@ def test_band_bounds_cover_the_rows_in_order(H, nb):
 
 @pytest.mark.parametrize("shape", MAIN_PATH_LEVELS)
 def test_cg_plan_main_path_levels_are_resident(shape):
-    plan = cg_plan(*shape, *H100)
+    plan = cg_plan(1, *shape, *H100)
     assert plan.path in ("single", "resident")
     rows = max(r for _, r in band_bounds(shape[0], plan.blocks))
     assert rows * shape[1] <= plan.ppt * RES_THREADS
@@ -81,13 +81,13 @@ def test_cg_plan_main_path_levels_are_resident(shape):
 
 
 def test_cg_plan_large_systems_stream_and_small_ones_take_one_block():
-    assert cg_plan(2160, 3840, *H100) == CgPlan("streaming")
-    assert cg_plan(1200, 1600, *H100) == CgPlan("streaming")
-    assert cg_plan(25, 37, *H100).path == "single"
-    assert cg_plan(388, 584, *H100).blocks == 132
+    assert cg_plan(1, 2160, 3840, *H100) == CgPlan("streaming")
+    assert cg_plan(1, 1200, 1600, *H100) == CgPlan("streaming")
+    assert cg_plan(1, 25, 37, *H100).path == "single"
+    assert cg_plan(1, 388, 584, *H100).blocks == 132
     # fewer SMs or less shared memory: the same shape may have to stream
-    assert cg_plan(388, 584, 40, 232448).path == "streaming"
-    assert cg_plan(49, 73, 132, 48 * 1024).path == "resident"
+    assert cg_plan(1, 388, 584, 40, 232448).path == "streaming"
+    assert cg_plan(1, 49, 73, 132, 48 * 1024).path == "resident"
 
 
 @pytest.mark.parametrize("shape", [(2, 388, 584), (1, 388, 584), (2, 33, 47), (2, 25, 37)])
@@ -384,7 +384,7 @@ def test_cg_kernel_paths_match_twin(cuda_device, rng, shape):
     sysm = _random_system(rng, *shape, torch.float32, cuda_device)
     before = (cg_kernel.launches_resident, cg_kernel.launches_streaming)
     x_k = cg_kernel.cg_solve(sysm, 1e-6, 100)
-    path = cg_kernel.cg_plan(*shape, *device_limits(cuda_device)).path
+    path = cg_kernel.cg_plan(1, *shape, *device_limits(cuda_device)).path
     after = (cg_kernel.launches_resident, cg_kernel.launches_streaming)
     assert after[path == "streaming"] == before[path == "streaming"] + 1
     x_t = cg_solve_plain(sysm, 1e-6, 100)

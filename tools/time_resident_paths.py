@@ -46,7 +46,7 @@ def main():
 
     for H, W in LEVELS:
         planes = list(chip_smoke._random_flow_system(torch, dev, rng, H, W))
-        plan = cg_kernel.cg_plan(H, W, *limits)
+        plan = cg_kernel.cg_plan(1, H, W, *limits)
         nb = min(limits[0], H)
         rows = -(-H // nb)
         bands = cg_kernel.CgPlan("resident", nb, 8, cg_kernel.resident_smem(rows, W))
@@ -57,7 +57,7 @@ def main():
 
     rgb1, rgb2, tu, tv = read_flow_file("RubberWhale", 10)
     irls = [f.contiguous() for f in chip_smoke._irls_system(torch, dev, rgb1, rgb2, tu, tv)]
-    plan = cg_kernel.cg_plan(388, 584, *limits)
+    plan = cg_kernel.cg_plan(1, 388, 584, *limits)
     runs = [("streaming", streaming), ("resident", plan), ("resident", plan), ("streaming", streaming)]
     print("cg irls 388x584 rtol 1e-3: " + "; ".join(f"{n} {per_iteration(irls, 1e-3, p)}" for n, p in runs))
 
