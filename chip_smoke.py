@@ -75,7 +75,19 @@ Phases, each printing its results; any failed check exits non-zero:
     call (its PCG device launches equal to the launch count);
 14. ``estimate_flow_video`` on 5 gray frames of RubberWhale rolled 1 px a
     frame (inner mean u ~ 1) and ``estimate_flow_stream`` over three real
-    pairs (each equal to its single-pair flow, in order).
+    pairs (each equal to its single-pair flow, in order);
+15. the batched BA, Horn–Schunck and alt-BA families through
+    ``estimate_flow_batched_rgb`` on the real pairs and a static pair
+    (RubberWhale's frame 10 twice), ``FAMILY_BATCHES``: ``hs-brightness``
+    (JAX's default; the static item stops on its own, at its single run's
+    warp iterations, and costs 0 PCG iterations once stopped), ``hs`` (the
+    batch's ROF input against the twin), ``classic++`` (the finest level's
+    batched PCG against the twin at rtol 1e-7), ``classic-c-a`` stable and at
+    its defaults (the guard's rollbacks item by item) and ``hs`` + SOR
+    (sweeps by item).  Each batch is counted (no plain twin); each item is
+    held to its own single-pair run (bit for bit but for SOR) and, where the
+    oracle has its sequence, to its gate; then the latency of
+    ``hs-brightness`` and ``classic++`` at B = 1 and 3 beside a single frame.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -87,8 +99,8 @@ median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
 (streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
 of each path driven (counts set to 0 just before it), the paths of phases
-9-14 included.  A line before those holds phase 13's latencies and
-profile as JSON.  Without a CUDA device, or
+9-15 included.  A line before those holds phases 13 and 15's latencies and
+phase 13's profile as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -125,13 +137,24 @@ PATH_GATES = {
 ALT_JAX = (90.23, 3.40e5)
 ALT_UNGUARDED = {"display": False, "guard_flow": None}
 ALT_STABLE = {"display": False, "lambda2": 0.01, "max_iters": 5, "gnc_iters": 2}
+ALT_STABLE_GATE = ((7.820, 0.2717), (0.2, 0.02))
 NEW_PATHS = [  # (label, method, params, gate, PCG solves a frame)
     ("classic-c-a", "classic-c-a", PATH_PARAMS, None, 90),
-    ("classic-c-a stable", "classic-c-a", ALT_STABLE, ((7.820, 0.2717), (0.2, 0.02)), 35),
+    ("classic-c-a stable", "classic-c-a", ALT_STABLE, ALT_STABLE_GATE, 35),
     ("hs sor", "hs", {"display": False, "solver": "sor"}, ((3.3592, 0.10434), (0.2, 0.01)), 0),
 ]
 # the batched phase: the real pairs of these sequences (one twice) as one batch
 BATCH_SEQS = ("RubberWhale", "Hydrangea", "Dimetrodon", "RubberWhale")
+# the batched families: (label, method, params, pairs) of each batch; "static"
+# is RubberWhale's frame 10 as both frames
+FAMILY_BATCHES = [
+    ("hs-brightness", "hs-brightness", PATH_PARAMS, ("RubberWhale", "Hydrangea", "static")),
+    ("hs", "hs", PATH_PARAMS, ("RubberWhale", "Hydrangea", "Dimetrodon")),
+    ("classic++", "classic++", PATH_PARAMS, ("RubberWhale", "Hydrangea", "Dimetrodon")),
+    ("classic-c-a stable", "classic-c-a", ALT_STABLE, ("RubberWhale", "Hydrangea")),
+    ("classic-c-a", "classic-c-a", PATH_PARAMS, ("RubberWhale", "Hydrangea")),
+    ("hs sor", "hs", {"display": False, "solver": "sor"}, ("RubberWhale", "static")),
+]
 LATENCY_RUNS = 3
 SEED = 0
 # an H100 SXM's published peaks (float32 outside the tensor cores; HBM3)
@@ -576,7 +599,9 @@ def _random_batch_systems(torch, dev, rng, B, H, W):
 
 def check_cg_batched(torch, dev, card, rng):
     """The batched whole-PCG kernel on every plan path, item by item against
-    the plain twin (max |dx|, iterations) and against one solve per item."""
+    the plain twin (max |dx|, iterations) and against one solve per item; and
+    with item 1's right-hand side zero (a Horn–Schunck item that stopped):
+    that item stops at iteration 0 with x = 0, the others are unchanged."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel
     from optical_flow_tpu_torch.ops.cuda.build import device_limits
     from optical_flow_tpu_torch.ops.stencil import FlowSystem
@@ -599,12 +624,22 @@ def check_cg_batched(torch, dev, card, rng):
             worst = max(worst, float((x[k] - x_t).abs().max()) / (1e-5 * max(float(x_t.abs().max()), 1.0)))
             if (plan.items == 1 or plan.path == "single" or plan.path == "streaming") and not torch.equal(x[k], single):
                 same_single = False
+        zeroed = sysm._replace(b_u=sysm.b_u.clone(), b_v=sysm.b_v.clone())
+        zeroed.b_u[1] = 0.0
+        zeroed.b_v[1] = 0.0
+        x_z = cg_kernel.cg_solve(zeroed, 1e-6, maxiter)
+        its_z = cg_kernel.item_iterations(dev)
+        rest = [k for k in range(B) if k != 1]
+        zero_ok = (its_z[1] == 0 and not bool(x_z[1].any()) and [its_z[k] for k in rest] == [its[k] for k in rest]
+                   and torch.equal(x_z[rest], x[rest]))
         torch.cuda.synchronize()
         print(f"cg batched B {B} x {H}x{W} ({plan.path}, {plan.blocks} bands an item, {plan.items} items a launch): "
               f"iterations by item kernel {its} / single solves {it_single} / plain {it_twin}; worst max|dx| / limit "
               f"{worst:.3f}; run twice: torch.equal {torch.equal(x, again)}; equal to one solve per item where the "
-              f"band layout is a single solve's: {same_single}")
+              f"band layout is a single solve's: {same_single}; item 1's right-hand side zeroed: iterations {its_z}, "
+              f"x = 0 there and the other items unchanged: {zero_ok}")
         check(worst <= 1.0 and torch.equal(x, again) and same_single, f"batched cg {B}x{H}x{W} differs")
+        check(zero_ok, f"batched cg {B}x{H}x{W}: a zero right-hand side did not stop its item at iteration 0 alone")
         check(all(abs(a - b) <= 2 for a, b in zip(its, it_twin)), f"batched cg {B}x{H}x{W}: iterations {its} vs {it_twin}")
         if plan.items > 1:  # one launch for all: the easy item must stop first
             check(len(set(its)) > 1, f"batched cg {B}x{H}x{W}: the items did not stop apart ({its})")
@@ -907,6 +942,39 @@ def no_plain_twins():
             setattr(m, n, f)
 
 
+@contextlib.contextmanager
+def solve_log(torch, dev, keep=0):
+    """Within the block, each PCG call appends (level shape, each item's
+    iterations, each item's right-hand side non-zero) to ``log["cg"]`` (a
+    sync a call), with clones of the last ``keep`` systems in ``log["kept"]``,
+    and each SOR call (level shape, each item's sweeps) to ``log["sor"]``."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.solvers import cg as cg_solvers
+
+    log = {"cg": [], "sor": [], "kept": []}
+    call, sor_call = cg_solvers.cg_solve, cg_solvers.sor_solve
+
+    def recording(sysm, rtol, maxiter):
+        x = call(sysm, rtol, maxiter)
+        live = ((sysm.b_u != 0) | (sysm.b_v != 0)).flatten(-2).any(-1).reshape(-1).tolist()
+        log["cg"].append((tuple(sysm.a11.shape[-2:]), cg_kernel.item_iterations(dev), live))
+        if keep:
+            log["kept"].append((type(sysm)(*[f.clone() for f in sysm]), rtol, maxiter))
+            del log["kept"][:-keep]
+        return x
+
+    def recording_sor(sysm, omega, max_iters, tol):
+        x, k = sor_call(sysm, omega, max_iters, tol, return_iters=True)
+        log["sor"].append((tuple(sysm.a11.shape[-2:]), k if isinstance(k, list) else [k]))
+        return x
+
+    cg_solvers.cg_solve, cg_solvers.sor_solve = recording, recording_sor
+    try:
+        yield log
+    finally:
+        cg_solvers.cg_solve, cg_solvers.sor_solve = call, sor_call
+
+
 def level_runs(solves):
     """[(shape, solves, iterations)] for each run of equal shapes, in order:
     one pyramid level each."""
@@ -941,8 +1009,9 @@ def read_counts():
 
 @contextlib.contextmanager
 def guard_tally(torch):
-    """Within the block, each level guard appends a 0-d device bool (True: the
-    level rolled back) to the list it yields; nothing is read on the host."""
+    """Within the block, each level guard appends a device bool (True: the
+    level rolled back), 0-d or one an item of a batch, to the list it yields;
+    nothing is read on the host."""
     from optical_flow_tpu_torch.methods import alt_ba, ba, classic_nl, hs
     from optical_flow_tpu_torch.utils.guard import flow_is_healthy
 
@@ -953,7 +1022,7 @@ def guard_tally(torch):
     def tallied(fn, n_new):
         def guarded(*args):
             new, max_flow = args[:n_new], args[-1]
-            rolled.append(~torch.stack([flow_is_healthy(f, max_flow) for f in new]).all())
+            rolled.append(~torch.stack([flow_is_healthy(f, max_flow) for f in new]).all(0))  # one an item
             return fn(*args)
         return guarded
 
@@ -995,32 +1064,15 @@ def phase_path(torch, dev, card, label, name, params, gate, rgb1, rgb2, tu, tv, 
     ``keep``, the frame's last ``keep`` PCG systems."""
     from optical_flow_tpu_torch import estimate_flow, flow_angular_error
     from optical_flow_tpu_torch.ops.cuda import cg_kernel
-    from optical_flow_tpu_torch.solvers import cg as cg_solvers
     from optical_flow_tpu_torch.solvers.sor import CHUNK
 
-    solves, sweeps, kept = [], [], []
-    call, sor_call = cg_solvers.cg_solve, cg_solvers.sor_solve
-
-    def recording(sysm, rtol, maxiter):
-        x = call(sysm, rtol, maxiter)
-        solves.append((tuple(sysm.a11.shape), cg_kernel.iteration_counts(dev)[0]))
-        if keep:
-            kept.append((type(sysm)(*[f.clone() for f in sysm]), rtol, maxiter))
-            del kept[:-keep]
-        return x
-
-    def recording_sor(sysm, omega, max_iters, tol):
-        x, k = sor_call(sysm, omega, max_iters, tol, return_iters=True)
-        sweeps.append((tuple(sysm.a11.shape), k))
-        return x
-
-    cg_solvers.cg_solve, cg_solvers.sor_solve = recording, recording_sor
-    try:
+    with solve_log(torch, dev, keep) as log:
         t0 = time.perf_counter()
         estimate_flow(rgb1, rgb2, name, params, device=dev)
         torch.cuda.synchronize()
-    finally:
-        cg_solvers.cg_solve, cg_solvers.sor_solve = call, sor_call
+    solves = [(shape, its[0]) for shape, its, _ in log["cg"]]
+    sweeps = [(shape, ks[0]) for shape, ks in log["sor"]]
+    kept = log["kept"]
     print(f"{label}: warm-up frame {time.perf_counter() - t0:.2f} s (host clock, one sync a solve)")
 
     reset_counts()
@@ -1236,11 +1288,22 @@ def phase_plain_ops(torch, dev, card):
           f"against float64 (limit 1e-5), one call {spline_ms:.3f} ms (bound {b['bound_ms']:.4f} ms, "
           f"{b['bound_by']})  [{card}]")
     check(err <= 1e-5, "B-spline prefilter outside 1e-5 of float64 on the card")
+    # a batch of 3 such stacks: one product over the batch chooses its kernel
+    # from the batch's shape; item by item, each item gets an unbatched call's bits
+    batch = torch.stack([tables, tables.flip(-1), 0.5 * tables])
+    joint = spline_coeffs_2d(batch.reshape(-1, H, W)).reshape(batch.shape)
+    each = spline_coeffs_2d(batch, 1)
+    torch.cuda.synchronize()
+    same = [torch.equal(each[k], spline_coeffs_2d(batch[k])) for k in range(3)]
+    print(f"spline_coeffs_2d on a batch of 3 x 3x388x584: one product over the batch equal to the unbatched calls "
+          f"{[torch.equal(joint[k], spline_coeffs_2d(batch[k])) for k in range(3)]}; item by item (the batched "
+          f"'cubic' warp's route) {same}")
+    check(all(same), "the item-by-item B-spline prefilter differs from its unbatched calls")
 
 
 def _recording(torch, record_wmedian, record_cg, record_rof=None):
-    """Context: the weighted-median, PCG and (with ``record_rof``) ROF calls
-    of the block append clones of their inputs to the lists."""
+    """Context: the weighted-median, PCG and ROF calls of the block append
+    clones of their inputs to the lists; a list that is None records nothing."""
     from optical_flow_tpu_torch.ops import rof as rof_op, wmedian as wmedian_op
     from optical_flow_tpu_torch.solvers import cg as cg_solvers
 
@@ -1260,7 +1323,10 @@ def _recording(torch, record_wmedian, record_cg, record_rof=None):
 
     @contextlib.contextmanager
     def ctx():
-        wmedian_op.wmedian, cg_solvers.cg_solve = recording, recording_cg
+        if record_wmedian is not None:
+            wmedian_op.wmedian = recording
+        if record_cg is not None:
+            cg_solvers.cg_solve = recording_cg
         if record_rof is not None:
             rof_op.rof_structure = recording_rof
         try:
@@ -1447,7 +1513,7 @@ def phase_scaling(torch, dev, card, pairs):
             return estimate_flow_batched_rgb(im1, im2, "classic+nl-fast", params=PARAMS, device=dev)
 
         recorded_rof = []
-        with _recording(torch, [], [], recorded_rof):
+        with _recording(torch, None, None, recorded_rof):
             run()
         if B == 3:
             rof = check_recorded_rof(torch, dev, card, recorded_rof, "batch B 3")
@@ -1524,6 +1590,189 @@ def phase_video_stream(torch, dev, card, pairs, cg_batch4):
     return video, stream
 
 
+def item_level_warps(entries, k):
+    """[(level shape, warp iterations)] of item ``k`` for each run of equal
+    level shapes in a PCG log: the calls in which its right-hand side was not zero."""
+    return [(shape, n) for shape, _, n in level_runs([(shape, int(live[k])) for shape, _, live in entries])]
+
+
+def stopped_items_cost_nothing(entries):
+    """True if, within each level, an item whose right-hand side has become
+    zero keeps it zero and runs 0 PCG iterations in every later call."""
+    stopped, shape0 = set(), None
+    for shape, its, live in entries:
+        if shape != shape0:
+            stopped, shape0 = set(), shape
+        for k, (n, on) in enumerate(zip(its, live)):
+            if k in stopped and (on or n):
+                return False
+            if not on:
+                if n:
+                    return False
+                stopped.add(k)
+    return True
+
+
+def batch_latency(torch, dev, method, items):
+    """Median of LATENCY_RUNS warm ``estimate_flow_batched_rgb`` calls on ``items``, by CUDA events, and the runs."""
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
+
+    im1, im2 = _batch_of(items)
+    estimate_flow_batched_rgb(im1, im2, method, params=PATH_PARAMS, device=dev)
+    ev_ms = []
+    for _ in range(LATENCY_RUNS):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        torch.cuda.synchronize()
+        start.record()
+        estimate_flow_batched_rgb(im1, im2, method, params=PATH_PARAMS, device=dev)
+        end.record()
+        torch.cuda.synchronize()
+        ev_ms.append(start.elapsed_time(end))
+    return statistics.median(ev_ms), ev_ms
+
+
+def family_gate(label, seq):
+    """((AAE, AEPE), (gate AAE, gate AEPE)) of an item of a family batch, or None:
+    the reference oracle's hs and classic++ gates on every sequence, the hs
+    gate for hs + SOR and JAX's stable alt-BA values on RubberWhale."""
+    from optical_flow_tpu_torch.evaluation.gates import GATES, METHOD_ORACLE, SEQ_GATES
+
+    method = {"hs": "hs", "classic++": "classic++", "hs sor": "hs"}.get(label)
+    if method is not None and (label != "hs sor" or seq == "RubberWhale"):
+        return METHOD_ORACLE[method][seq], SEQ_GATES.get((method, seq), GATES[method])
+    if label == "classic-c-a stable" and seq == "RubberWhale":
+        return ALT_STABLE_GATE
+    return None
+
+
+def phase_batch_families(torch, dev, card, pairs):
+    """The BA, Horn–Schunck and alt-BA families through ``estimate_flow_batched_rgb``
+    on real 584x388 frame-10 pairs (and a static pair, RubberWhale's frame 10
+    twice), each batch counted (no plain twin; the counts set to 0 just before
+    it), each item against its own single-pair run on the card: see
+    ``FAMILY_BATCHES``.  Returns each batch's launches."""
+    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.config import load_of_method
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
+
+    t_phase = time.perf_counter()
+    seqs = {p[0]: p for p in pairs}
+    seqs["static"] = ("static", seqs["RubberWhale"][1], seqs["RubberWhale"][1], None, None)
+    launches = {}
+    for label, method, params, names in FAMILY_BATCHES:
+        items = [seqs[n] for n in names]
+        B = len(items)
+        im1, im2 = _batch_of(items)
+        recorded_rof = []
+        reset_counts()
+        with no_plain_twins(), guard_tally(torch) as rolled, _recording(torch, None, None, recorded_rof), \
+                solve_log(torch, dev, keep=10 if label == "classic++" else 0) as log:
+            uv = estimate_flow_batched_rgb(im1, im2, method, params=params, device=dev)
+            torch.cuda.synchronize()
+        counts, by_path = read_counts()
+        launches[f"batch {label}"] = counts
+        uv_np = uv.cpu().numpy()
+        rolled = torch.stack(rolled).tolist() if rolled else []
+        print(f"batch {label} B {B} ({', '.join(names)}) 584x388: launches {counts}, {by_path}, CG iterations over all "
+              f"items {cg_kernel.iteration_counts(dev)[1]}, {len(log['sor'])} SOR calls")
+        check(uv_np.shape == (B, 388, 584, 2) and np.isfinite(uv_np).all(), f"batch {label}: flow not finite")
+        ope = load_of_method(method)
+        ope.parse_input_parameter(params)
+        cg_expected = sum(cg_kernel.device_launches(B, cg_kernel.cg_plan(B, *shape, *device_limits(dev)))
+                          for shape, _, _ in log["cg"])
+        check(counts == {"wmedian": 0, "cg": cg_expected, "rof": int(bool(ope.texture))}
+              and by_path["cg items"] == B * len(log["cg"]), f"batch {label}: unexpected launches {counts}, {by_path}")
+
+        failed = []
+        for k, (name, a, b, tu, tv) in enumerate(items):
+            with solve_log(torch, dev) as slog, guard_tally(torch) as srolled:
+                single = estimate_flow(a, b, method, params, device=dev).cpu().numpy()
+            same = np.array_equal(uv_np[k], single)
+            d = float(np.abs(uv_np[k] - single).max())
+            line = f"batch {label} item {k} {name}: against its single-pair run bit-identical {same}, max |d| {d:.3e} px"
+            if tu is not None:
+                aae, _, aepe = flow_angular_error(tu, tv, uv_np[k, ..., 0], uv_np[k, ..., 1])
+                line += f"; AAE {aae:.4f} deg, AEPE {aepe:.5f} px"
+                gate = family_gate(label, name)
+                if gate is not None:
+                    (t_aae, t_aepe), (g_aae, g_aepe) = gate
+                    line += f" (target {t_aae} / {t_aepe}, gate {g_aae} / {g_aepe})"
+                    if not (abs(aae - t_aae) <= g_aae and abs(aepe - t_aepe) <= g_aepe):
+                        failed.append(f"batch {label} item {k} {name}: outside the gate")
+            if label.startswith("hs") and log["cg"]:
+                warps = item_level_warps(log["cg"], k)
+                single_warps = item_level_warps(slog["cg"], 0)
+                line += f"; warp iterations by level, coarse to fine: {[n for _, n in warps]} (single run " \
+                        f"{[n for _, n in single_warps]})"
+                if warps != single_warps:
+                    failed.append(f"batch {label} item {k} {name}: warp iterations differ from its single run")
+            if log["sor"]:
+                sweeps = [n for _, _, n in level_runs([(s, ks[k]) for s, ks in log["sor"]])]
+                single_sweeps = [n for _, _, n in level_runs([(s, ks[0]) for s, ks in slog["sor"]])]
+                line += f"; SOR sweeps by level {sweeps} (single run {single_sweeps})"
+                limit = 1e-2 * max(float(np.abs(single).max()), 1.0)  # SOR's own tolerance
+                if name == "static" and d > limit:
+                    failed.append(f"batch {label} item {k}: beyond SOR's tolerance of its single run")
+            elif not same:
+                failed.append(f"batch {label} item {k} {name}: not bit-identical to its single-pair run")
+            if rolled:
+                mine = [int(r[k]) for r in rolled]
+                theirs = [int(r) for r in torch.stack(srolled).tolist()]
+                line += f"; levels rolled back {mine} (single run {theirs})"
+                if mine != theirs:
+                    failed.append(f"batch {label} item {k}: other levels rolled back than in its single run")
+            if label == "classic-c-a" and not float(np.abs(uv_np[k]).max()) <= 1e9:
+                failed.append(f"batch {label} item {k}: flow beyond the guard's bound 1e9")
+            print(line + f"  [{card}]")
+        check(not failed, "; ".join(failed))
+
+        if label == "hs-brightness":
+            k = names.index("static")
+            others_on = any(not live[k] and any(live) for _, _, live in log["cg"])
+            print(f"batch {label}: the static item stopped on its own while the others went on {others_on}; every "
+                  f"stopped item ran 0 PCG iterations in every later call of its level "
+                  f"{stopped_items_cost_nothing(log['cg'])}")
+            check(others_on and stopped_items_cost_nothing(log["cg"]), f"batch {label}: the per-item stop failed")
+        if label == "hs":
+            check_recorded_rof(torch, dev, card, recorded_rof, f"batch {label} B {B}")
+        if label == "classic++":
+            worst, its_k, its_t = 0.0, [], []
+            for sysm, rtol, maxiter in log["kept"]:
+                x = cg_kernel.cg_solve(sysm, rtol, maxiter)
+                its = cg_kernel.item_iterations(dev)
+                for k in range(B):
+                    item = FlowSystem(*[f[k] for f in sysm])
+                    x_t, it_t = cg_twin(torch, item, rtol, maxiter)
+                    x_d, it_d = cg_twin(torch, item, rtol, maxiter, sums=torch.float64)
+                    limit = 1e-5 * max(float(x_t.abs().max()), 1.0)
+                    err = min(float((x[k] - x_t).abs().max()), float((x[k] - x_d).abs().max()))
+                    worst = max(worst, err / limit)
+                    its_k.append(its[k])
+                    its_t.append(it_t if its[k] == it_t else it_d)
+            print(f"cg batch {label}: the finest level's {len(log['kept'])} calls of {B} items (rtol "
+                  f"{log['kept'][0][1]:g}) against the plain twin: worst max|dx| / limit {worst:.3e}; iterations "
+                  f"kernel {its_k} / twin {its_t} (the float32 twin's, or with double sums where those differ)  [{card}]")
+            check(len(log["kept"]) == 10 and worst <= 1.0 and its_k == its_t,
+                  f"batch {label}: the finest level's batched PCG differs from its twin")
+
+    lat = {}
+    for method in ("hs-brightness", "classic++"):
+        rw = seqs["RubberWhale"]
+        single_ms, single_runs, _ = frame_latency(torch, dev, method, PATH_PARAMS, rw[1], rw[2])
+        lat[method] = {"single_ms": single_ms}
+        line = f"batch latency {method}: single frame {single_ms:.2f} ms (runs {', '.join(f'{x:.2f}' for x in single_runs)})"
+        for B in (1, 3):
+            ms, runs = batch_latency(torch, dev, method, [seqs[n] for n in BATCH_SEQS[:B]])
+            lat[method][f"batch{B}_ms"] = ms
+            line += f"; B {B} {ms:.2f} ms (runs {', '.join(f'{x:.2f}' for x in runs)}), {ms / B:.2f} ms a pair"
+        print(line + f"  [{card}]")
+    print(f"batch families: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches, lat
+
+
 def main():
     try:
         import torch
@@ -1582,6 +1831,8 @@ def main():
         scaling, prof = phase_scaling(torch, dev, card, pairs)
         launches_by_path["video"], launches_by_path["stream"] = phase_video_stream(
             torch, dev, card, pairs, launches_by_path["batch"]["cg"])
+        family_launches, family_latency = phase_batch_families(torch, dev, card, pairs)
+        launches_by_path.update(family_launches)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1599,7 +1850,7 @@ def main():
          **results[name], "library_ms": None}
         for name, (src, rep) in meta.items()
     ]
-    print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof}))
+    print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof, "families": family_latency}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

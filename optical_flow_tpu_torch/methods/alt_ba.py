@@ -76,11 +76,11 @@ def alt_ba_level_step(cfg: AltBALevelConfig, images, uv, uvhat, alpha, replaceme
             tmp = cfg.rho_couple.deriv_over_x(uv - uvhat)
             sys = add_coupling(sys, lambda2 * tmp)
             delta = lambda2 * tmp * (uvhat - uv)
-            sys = sys._replace(b_u=sys.b_u + delta[:, :, 0], b_v=sys.b_v + delta[:, :, 1])
+            sys = sys._replace(b_u=sys.b_u + delta[..., 0], b_v=sys.b_v + delta[..., 1])
             duv = solve_update(irls, sys)
         uv = uv + duv
         # Li–Osher update of the auxiliary field, both fields in one call
-        uvhat = denoise_LO(uv.permute(2, 0, 1), irls.median_filter_size, lam_lo, cfg.iters_lo).permute(1, 2, 0)
+        uvhat = denoise_LO(uv.movedim(-1, -3), irls.median_filter_size, lam_lo, cfg.iters_lo).movedim(-3, -1)
         if replacement:
             uv = uvhat
     if irls.guard:
@@ -108,11 +108,14 @@ def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = 
     not the auxiliary field, as in the JAX package).
 
     The texture route runs ROF at its default ``alp`` 0.95, whatever the
-    method's ``alp``, as the reference does.
+    method's ``alp``, as the reference does.  ``images`` (..., H, W, 2C) and
+    the fields (..., H, W, 2) may carry a leading batch axis: one program for
+    B pairs of one shape, each item normalised and guarded on its own.
     """
-    proc = _preprocess_traced("texture" if plan.texture else "scale", images, 0.95)
-    pyramid = build_pyramid(proc, plan.levels, plan.spacing)
-    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing)
+    nb = images.ndim - 3  # leading batch axes
+    proc = _preprocess_traced("texture" if plan.texture else "scale", images, 0.95, nb)
+    pyramid = build_pyramid(proc, plan.levels, plan.spacing, nb)
+    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, nb)
     for stage_idx, (cfg, alpha, replacement) in enumerate(plan.stages):
         if display:
             print(f"GNC stage: {stage_idx + 1}")

@@ -123,10 +123,16 @@ def _preprocess_traced(kind: str, images, alp: float, batch_dims: int = 0):
 
 def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpoint=None):
     """The whole GNC + coarse-to-fine BA flow; ``checkpoint(stage, level, uv)``
-    after every level, if given."""
-    proc = _preprocess_traced(plan.preprocess, images, plan.alp)
-    pyramid = build_pyramid(proc, plan.levels, plan.spacing)
-    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing)
+    after every level, if given.
+
+    ``images`` (..., H, W, 2C) and ``uv`` (..., H, W, 2) may carry a leading
+    batch axis: one program for B pairs of one shape, each item normalised,
+    solved and guarded on its own.
+    """
+    nb = images.ndim - 3  # leading batch axes
+    proc = _preprocess_traced(plan.preprocess, images, plan.alp, nb)
+    pyramid = build_pyramid(proc, plan.levels, plan.spacing, nb)
+    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, nb)
     for stage_idx, (cfg, alpha) in enumerate(plan.stages):
         if display:
             print(f"GNC stage: {stage_idx + 1}")

@@ -15,8 +15,8 @@ from optical_flow_tpu_torch.ops.penalties import Robust
 
 
 def median_pair(uv, size):
-    """Median-filter both fields of the (H, W, 2) flow (scipy-'reflect' boundary) in one call."""
-    return median_filter2d(uv.permute(2, 0, 1), size, "reflect").permute(1, 2, 0)
+    """Median-filter both fields of the (..., H, W, 2) flow (scipy-'reflect' boundary) in one call."""
+    return median_filter2d(uv.movedim(-1, -3), size, "reflect").movedim(-3, -1)
 
 
 class BaseOpticalFlow:

@@ -2,10 +2,15 @@
 
 Each pyramid level runs up to ``max_warping_iters`` warp iterations: the HS
 system is built and solved (whole-PCG kernel), and the loop stops as soon
-as the update's norm falls below 1e-3, discarding that update.  The norm is
-read on the host once per warp iteration.  Otherwise the clipped update is
-added and the flow median-filtered ``mf_iter`` times.  One more median pass
-follows the finest level.
+as the update's norm falls below 1e-3, discarding that update.  Otherwise
+the clipped update is added and the flow median-filtered ``mf_iter`` times.
+One more median pass follows the finest level.
+
+With a leading batch axis each item stops on its own, as ``jax.vmap`` of
+the JAX package's ``while_loop``: an item whose update fell below the stop
+keeps its flow, and its later systems get a zero right-hand side, so the
+solver stops it at iteration 0.  The host reads one flag a warp iteration,
+whether any item still runs.
 """
 from __future__ import annotations
 
@@ -50,19 +55,25 @@ def hs_level_step(cfg: HSLevelConfig, images, uv):
     """One pyramid level of Horn–Schunck, with the early stop, then the guard."""
     pre = precompute_warp(images, cfg.interp, np.array(cfg.deriv_filter), cfg.blend)
     uv0 = uv
+    running = torch.ones(uv.shape[:-3], dtype=torch.bool, device=uv.device)  # one sticky flag an item
     for _ in range(cfg.max_warping_iters):
         It, Ix, Iy = warp_deriv(pre, uv)
         sys = build_hs_system(uv, It, Ix, Iy, cfg.lambda_, cfg.sigmaD2, cfg.sigmaS2)
+        # a stopped item's update is discarded: a zero right-hand side costs it no iteration
+        on = running[..., None, None]
+        sys = sys._replace(b_u=torch.where(on, sys.b_u, 0.0), b_v=torch.where(on, sys.b_v, 0.0))
         x = solve_flow_system(sys, *cfg.solver)
-        # a NaN norm stops the loop too, as in the JAX package's `norm >= 1e-3`
-        if not float(torch.linalg.norm(x.reshape(-1))) >= STOP_NORM:
+        # a NaN norm stops the item too, as in the JAX package's `norm >= 1e-3`
+        running = running & (torch.linalg.norm(x.flatten(-3), dim=-1) >= STOP_NORM)
+        if not bool(running.any()):
             break
         if cfg.limit_update:
             x = torch.clamp(x, -1.0, 1.0)
-        uv = uv + x
+        new_uv = uv + x
         if cfg.median_filter_size is not None:
             for _k in range(cfg.mf_iter):
-                uv = median_pair(uv, cfg.median_filter_size)
+                new_uv = median_pair(new_uv, cfg.median_filter_size)
+        uv = torch.where(running[..., None, None, None], new_uv, uv)
     if cfg.guard:
         uv = guard_level(uv, uv0, cfg.guard)
     return uv
@@ -82,12 +93,18 @@ class HSFlowPlan:
 
 def hs_flow_program(plan: HSFlowPlan, images, uv, display: bool = False, checkpoint=None):
     """The whole coarse-to-fine HS flow, then the final median pass;
-    ``checkpoint(0, level, uv)`` after every level, if given."""
+    ``checkpoint(0, level, uv)`` after every level, if given.
+
+    ``images`` (..., H, W, 2C) and ``uv`` (..., H, W, 2) may carry a leading
+    batch axis: one program for B pairs of one shape, each item normalised,
+    stopped and guarded on its own.
+    """
+    nb = images.ndim - 3  # leading batch axes
     if plan.texture:
-        images = structure_texture_decomposition_rof(images)
+        images = structure_texture_decomposition_rof(images, batch_dims=nb)
     else:
-        images = scale_image(images, 0, 255)
-    pyramid = build_pyramid(images, plan.levels, plan.spacing)
+        images = scale_image(images, 0, 255, batch_dims=nb)
+    pyramid = build_pyramid(images, plan.levels, plan.spacing, nb)
     for level in range(plan.levels - 1, -1, -1):
         if display:
             print(f"Pyramid level: {level + 1}")

@@ -97,7 +97,7 @@ def precompute_warp(images, interp_method: str = "cubic", deriv_filter=None, ble
             torch.stack([c, correlate2d(c, fx, "reflect"), correlate2d(c, fy, "reflect")], dim=-3) for c in im2s
         )
         if interp_method == "cubic":
-            warp_tables = tuple(spline_coeffs_2d(t) for t in warp_tables)
+            warp_tables = tuple(spline_coeffs_2d(t, images.ndim - 3) for t in warp_tables)
     return WarpPrecompute(
         method=interp_method,
         blend=float(blend),

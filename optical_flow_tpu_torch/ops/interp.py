@@ -43,8 +43,12 @@ def _prefilter_operator(n: int, dtype, device) -> torch.Tensor:
     return torch.as_tensor(bspline_prefilter_matrix(n), dtype=dtype, device=device)
 
 
-def spline_coeffs_2d(im):
-    """Cubic B-spline coefficients of the last two axes of ``im`` (..., H, W): two matrix products."""
+def spline_coeffs_2d(im, batch_dims: int = 0):
+    """Cubic B-spline coefficients of the last two axes of ``im`` (..., H, W): two
+    matrix products; with ``batch_dims`` leading batch axes, item by item (see
+    :func:`per_item`)."""
+    if batch_dims:
+        return per_item(spline_coeffs_2d, im, batch_dims)
     H, W = im.shape[-2:]
     Ph = _prefilter_operator(H, im.dtype, im.device)
     Pw = _prefilter_operator(W, im.dtype, im.device)

@@ -1,21 +1,23 @@
 """Batched flow estimation over frame pairs of one shape (port of ``optical_flow_tpu/parallel/batch.py``).
 
-B pairs run as one program: every op of the Classic+NL schedule takes the
-leading batch axis, so most launches of the single-pair path are issued
-once for the whole batch.  The exceptions run once an item: the matrix
-products of the flow resample and of the warp's Hermite table
-(``ops/interp.py::per_item``, so that each item gets an unbatched call's
-rounding), and the PCG launches of the levels whose plan takes one item a
-launch.  The whole-PCG kernel solves the B systems of a warp iteration in
-one call (each item with its own stopping test), the weighted median
-filters all B flows in one launch and ROF decomposes the 2B images of the
-batch in one call.  Each item is normalised, stopped and guarded on its
-own, so it gets its single-pair flow (up to the order of the kernels'
-sums).
+B pairs run as one program, for every method family (Classic+NL, BA,
+Horn–Schunck, alt-BA): every op of a family's schedule takes the leading
+batch axis, so most launches of the single-pair path are issued once for
+the whole batch.  The exceptions run once an item: the matrix products of
+the flow resample, of the warp's Hermite table and of the B-spline
+prefilter (``ops/interp.py::per_item``, so that each item gets an
+unbatched call's rounding), and the PCG launches of the levels whose plan
+takes one item a launch.  The whole-PCG kernel solves the B systems of a
+warp iteration in one call (each item with its own stopping test), SOR
+converges each item on its own, the weighted median filters all B flows in
+one launch and ROF decomposes the 2B images of the batch in one call.
+Each item is normalised, stopped and guarded on its own, and Horn–Schunck
+ends each item's warp loop on its own, as ``jax.vmap`` of the JAX
+package's whole-flow programs does, so each item gets its single-pair flow
+(up to the order of the kernels' sums).
 
-The Classic+NL family runs batched; the BA, HS and alt-BA families are
-ROADMAP item 13b and raise, and so does a ``mesh`` (item 14).  ``fuse``
-(TPU compile plumbing in the JAX package) is accepted and ignored.
+A ``mesh`` raises (ROADMAP item 14).  ``fuse`` (TPU compile plumbing in
+the JAX package) is accepted and ignored.
 """
 from __future__ import annotations
 
@@ -24,27 +26,22 @@ import torch
 
 from optical_flow_tpu_torch.config import load_of_method
 from optical_flow_tpu_torch.interface import _resolve_dtype, resolve_device
+from optical_flow_tpu_torch.methods.alt_ba import AltBAOpticalFlow, alt_ba_flow_program
+from optical_flow_tpu_torch.methods.ba import BAOpticalFlow, ba_flow_program
 from optical_flow_tpu_torch.methods.classic_nl import ClassicNLOpticalFlow, classic_nl_flow_program
+from optical_flow_tpu_torch.methods.hs import HSOpticalFlow, hs_flow_program
 from optical_flow_tpu_torch.utils.compat import preprocess_color_batch
 
 __all__ = ["estimate_flow_batched", "estimate_flow_batched_rgb", "preprocess_color_batch"]
 
 
 def _batched_method(method: str, mesh, params, caller: str):
-    """The method object of ``method`` with ``params``; raises where the batched path does not run."""
+    """The method object of ``method`` with ``params``; raises for a ``mesh``."""
     if mesh is not None:
         raise NotImplementedError(f"{caller}(mesh=...): multi-GPU sharding is ROADMAP item 14")
     ope = load_of_method(method)
     if params is not None:
         ope.parse_input_parameter(params)
-    if type(ope) is not ClassicNLOpticalFlow:
-        # exact-type dispatch, as in the JAX package: BA, HS and alt-BA (and
-        # JAX's default 'hs-brightness') batch their own way
-        raise NotImplementedError(
-            f"{caller}: method {method!r} ({type(ope).__name__}) has no batched path yet; the Classic+NL "
-            "family runs batched, BA, HS and alt-BA are ROADMAP item 13b")
-    if str(ope.solver) == "sor":
-        raise NotImplementedError(f"{caller}: SOR with a batch axis (per-item convergence) is ROADMAP item 13b")
     return ope
 
 
@@ -64,13 +61,14 @@ def estimate_flow_batched(images_batch, method: str = "hs-brightness", mesh=None
     them; (B, H, W) gray guides work too).  With it the batch runs the
     colour-guided weighted median of the single-pair path; without it, the
     plain-median route, as the JAX package and the reference do without a
-    guide.  ``device``: ``"cuda"`` (default; raises without a GPU) or
-    ``"cpu"``.
+    guide.  The other families take no guide and ignore it.  ``device``:
+    ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
 
-    The preprocessing follows the single-pair plan (texture, high-pass or
-    rescale), which is the JAX package's fused program; its unfused batched
-    route knows only texture and rescale.  Every Classic+NL preset uses
-    texture, so the two agree on every preset.
+    Every family follows its single-pair plan, which is the JAX package's
+    fused program: ``jax.vmap`` of the family's whole-flow program.  Its
+    unfused batched route knows only texture and rescale preprocessing, so
+    for the BA presets with the high-pass (``fc``) the fused route is the
+    one this matches.  Alt-BA returns its auxiliary field, as there.
     """
     ope = _batched_method(method, mesh, params, "estimate_flow_batched")
     dev = resolve_device(device, "estimate_flow_batched")
@@ -79,11 +77,19 @@ def estimate_flow_batched(images_batch, method: str = "hs-brightness", mesh=None
         images = _as_batch(images_batch, dtype, dev)
         if images.ndim != 4 or images.shape[-1] % 2:
             raise ValueError(f"expected (B, H, W, 2C) frame pairs, got {tuple(images.shape)}")
-        color = None if color_batch is None else _as_batch(color_batch, dtype, dev)
         B, H, W = images.shape[:3]
-        plan = ope._make_nl_plan((H, W), use_color=color is not None)
         uv = torch.zeros((B, H, W, 2), dtype=dtype, device=dev)
-        uv = classic_nl_flow_program(plan, images, color, uv)
+        # exact types: alt-BA and Classic+NL subclass BA
+        if type(ope) is HSOpticalFlow:
+            uv = hs_flow_program(ope._make_plan((H, W)), images, uv)
+        elif type(ope) is BAOpticalFlow:
+            uv = ba_flow_program(ope._make_plan((H, W)), images, uv)
+        elif type(ope) is AltBAOpticalFlow:
+            uv = alt_ba_flow_program(ope._make_alt_plan((H, W)), images, uv, uv)  # the auxiliary field
+        else:
+            color = None if color_batch is None else _as_batch(color_batch, dtype, dev)
+            plan = ope._make_nl_plan((H, W), use_color=color is not None)
+            uv = classic_nl_flow_program(plan, images, color, uv)
         if ope.out_dtype is not None:
             uv = uv.to(_resolve_dtype(ope.out_dtype))
     return uv
@@ -95,8 +101,8 @@ def estimate_flow_batched_rgb(im1_batch, im2_batch, method: str = "classic+nl-fa
 
     The batched single-pair RGB path: MATLAB-exact gray conversion and the
     [0, 255]-Lab guide of every pair (each item rescaled on its own), then
-    :func:`estimate_flow_batched` with the guides where the method asks for
-    colour.
+    :func:`estimate_flow_batched` with the guides where a Classic+NL method
+    asks for colour; the other families run on the gray pairs.
     """
     ope = _batched_method(method, mesh, params, "estimate_flow_batched_rgb")
     dev = resolve_device(device, "estimate_flow_batched_rgb")
@@ -106,5 +112,5 @@ def estimate_flow_batched_rgb(im1_batch, im2_batch, method: str = "classic+nl-fa
         if im1.shape != im2.shape or im1.ndim != 4 or im1.shape[-1] < 3:
             raise ValueError(f"expected two (B, H, W, 3) RGB batches, got {tuple(im1.shape)} and {tuple(im2.shape)}")
         images, lab = preprocess_color_batch(im1, im2)
-    return estimate_flow_batched(images, method, params=params,
-                                 color_batch=lab if ope.color_images is not None else None, device=dev)
+    want_color = ope.color_images is not None and type(ope) is ClassicNLOpticalFlow
+    return estimate_flow_batched(images, method, params=params, color_batch=lab if want_color else None, device=dev)

@@ -16,7 +16,10 @@ from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched
 
 
 def estimate_flow_video(frames, method: str = "classic+nl-fast", mesh=None, params=None, device="cuda"):
-    """Flow for every consecutive pair of a (T, H, W) grayscale sequence -> (T-1, H, W, 2)."""
+    """Flow for every consecutive pair of a (T, H, W) grayscale sequence -> (T-1, H, W, 2).
+
+    Every method family runs, as one batch (:func:`estimate_flow_batched`).
+    """
     frames = frames if torch.is_tensor(frames) else torch.as_tensor(np.array(frames))
     if frames.ndim != 3:
         raise ValueError(f"expected (T, H, W) grayscale frames, got {tuple(frames.shape)}")

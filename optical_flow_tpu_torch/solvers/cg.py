@@ -6,8 +6,8 @@ PCG at rtol 1e-7 / maxiter 1000.  Both go through
 :func:`~optical_flow_tpu_torch.ops.cuda.cg_kernel.cg_solve`: the whole-PCG
 kernel on the card, the plain twin :func:`pcg_solve_split` on the CPU.
 ``'sor'`` is red-black SOR (:func:`~optical_flow_tpu_torch.solvers.sor.sor_solve`,
-plain PyTorch on either device).  PCG takes planes with leading batch axes,
-one system an item; SOR one system only.
+plain PyTorch on either device).  Both take planes with leading batch
+axes, one system an item, each stopped or converged on its own.
 """
 from __future__ import annotations
 
@@ -35,7 +35,5 @@ def solve_flow_system(
     if solver == "backslash":
         return cg_solve(sys, backslash_rtol, backslash_maxiter)
     if solver == "sor":
-        if sys.a11.ndim > 2:
-            raise NotImplementedError("SOR with a batch axis (per-item convergence) is ROADMAP item 13b")
         return sor_solve(sys, sor_omega, sor_max_iters, sor_tol)
     raise ValueError(f"Unknown solver: {solver}")

@@ -13,6 +13,14 @@ first converged sweep, every later sweep of the chunk is masked out
 chunk.  Result and sweep count equal the JAX loop's, with
 ``ceil(sweeps / CHUNK)`` host reads a solve.  Plain PyTorch, as the JAX
 solver is XLA code and not a Pallas kernel.
+
+Planes with leading batch axes are one system an item, as ``jax.vmap`` of
+the JAX solver: each item tests its own ``delta`` and ``norm`` over its own
+(H, W) planes, keeps its own flag and sweep count and is frozen once it
+converges, and the chunks run while any item sweeps.  An item whose
+right-hand side is zero (Horn–Schunck's batch gives an item that stopped
+one) is solved by x0 = 0 and runs no sweep; the JAX loop would sweep it to
+``max_iters`` without changing it.
 """
 from __future__ import annotations
 
@@ -24,9 +32,10 @@ CHUNK = 8  # sweeps between two host reads of the convergence flag
 
 
 def sor_solve(sys: FlowSystem, omega: float = 1.9, max_iters: int = 200, tol: float = 1e-2, return_iters=False):
-    """Red-black SOR from x0 = 0, returning the (H, W, 2) solution (and, with
-    ``return_iters``, the sweeps run, read on the host)."""
-    H, W = sys.a11.shape
+    """Red-black SOR from x0 = 0 on (..., H, W) planes, returning the
+    (..., H, W, 2) solution (and, with ``return_iters``, the sweeps run, read
+    on the host: an int, or a list of each item's with batch axes)."""
+    H, W = sys.a11.shape[-2:]
     dev = sys.a11.device
     ii = torch.arange(H, device=dev)[:, None]
     jj = torch.arange(W, device=dev)[None, :]
@@ -58,19 +67,21 @@ def sor_solve(sys: FlowSystem, omega: float = 1.9, max_iters: int = 200, tol: fl
 
     u = torch.zeros_like(sys.b_u)
     v = torch.zeros_like(sys.b_v)
-    done = torch.zeros((), dtype=torch.bool, device=dev)
-    sweeps = torch.zeros((), dtype=torch.int64, device=dev)
+    # one flag and one sweep count an item; x0 = 0 solves a zero right-hand side
+    done = ((sys.b_u == 0) & (sys.b_v == 0)).flatten(-2).all(-1)
+    sweeps = torch.zeros(sys.a11.shape[:-2], dtype=torch.int64, device=dev)
     for start in range(0, int(max_iters), CHUNK):
         for _ in range(min(CHUNK, int(max_iters) - start)):
             u1, v1 = half_sweep(u, v, *upd[0])
             u1, v1 = half_sweep(u1, v1, *upd[1])
-            delta = torch.sqrt(torch.sum((u1 - u) ** 2 + (v1 - v) ** 2))
-            norm = torch.sqrt(torch.sum(u1**2 + v1**2))
+            delta = torch.sqrt(torch.sum((u1 - u) ** 2 + (v1 - v) ** 2, dim=(-2, -1)))
+            norm = torch.sqrt(torch.sum(u1**2 + v1**2, dim=(-2, -1)))
             sweeps = sweeps + (~done).long()
-            u = torch.where(done, u, u1)
-            v = torch.where(done, v, v1)
+            frozen = done[..., None, None]
+            u = torch.where(frozen, u, u1)
+            v = torch.where(frozen, v, v1)
             done = done | (delta < tol * norm)
-        if bool(done):
+        if bool(done.all()):
             break
     x = torch.stack([u, v], dim=-1)
-    return (x, int(sweeps)) if return_iters else x
+    return (x, sweeps.tolist()) if return_iters else x

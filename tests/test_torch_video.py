@@ -91,3 +91,16 @@ def test_copied_gates_equal_the_benchmark_constants():
     finally:
         sys.path.remove(repo)
     assert gates.GATES == middlebury.GATES and gates.SEQ_GATES == middlebury.SEQ_GATES
+
+
+def test_copied_method_oracle_equals_the_benchmark_json():
+    import json
+    import os
+
+    from optical_flow_tpu_torch.evaluation import gates
+
+    with open(os.path.join(os.path.dirname(REPO_DATA_DIR), "benchmarks", "results_ref_oracle_methods.json")) as f:
+        oracle = json.load(f)
+    methods = {m: {k: (v["aae"], v["aepe"]) for k, v in seqs.items() if not k.startswith("_")}
+               for m, seqs in oracle.items() if not m.startswith("_")}
+    assert gates.METHOD_ORACLE == methods and set(methods) == {"hs", "classic++", "classic+nl", "ba"}

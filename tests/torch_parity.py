@@ -50,6 +50,61 @@ def rubberwhale_crop(h=64, w=96, y0=100, x0=200):
 MAIN_PATH_PARAMS = {"display": False, "solver": "pcg"}
 SLICE_CROP = dict(h=64, w=96, y0=220, x0=200)
 SLICE_CROP32 = dict(h=48, w=64, y0=220, x0=200)  # 2 + 2 levels: fewer JAX compiles
+# the batched families' crop: inside SLICE_CROP32, so free of gray ties too
+FAMILY_CROP = dict(h=24, w=32, y0=220, x0=200)
+STATIC = 2  # the static pair's index in family_batch()
+
+
+def family_batch():
+    """The batched families' (3, 24, 32, 3) RGB batches (im1, im2): the frame
+    10 / 11 crops (``FAMILY_CROP``) of RubberWhale and Hydrangea, and a static
+    pair, RubberWhale's frame 10 crop as both frames (index ``STATIC``)."""
+    from optical_flow_tpu_torch.io.flo import read_flow_file
+
+    c = FAMILY_CROP
+    sl = np.s_[c["y0"] : c["y0"] + c["h"], c["x0"] : c["x0"] + c["w"]]
+    pairs = [read_flow_file(s, 10, REPO_DATA_DIR)[:2] for s in ("RubberWhale", "Hydrangea")]
+    im1 = np.stack([a[sl] for a, _ in pairs] + [pairs[0][0][sl]])
+    im2 = np.stack([b[sl] for _, b in pairs] + [pairs[0][0][sl]])
+    return im1, im2
+
+
+def jax_family_flows(cases):
+    """``family_batch()``'s RGB batches, the JAX package's gray pairs of them
+    and its fused batched flow (``jax.vmap`` of the whole-flow program) of
+    each ``{label: (method, params)}`` case in float64, as numpy."""
+    import jax.numpy as jnp
+
+    from optical_flow_tpu.parallel import batch as bj
+
+    im1, im2 = family_batch()
+    images = np.asarray(bj.preprocess_color_batch(im1, im2, dtype=jnp.float64)[0])
+    out = {"im1": im1, "im2": im2, "images": images}
+    for label, (method, params) in cases.items():
+        p = {"display": False, **params, "dtype": jnp.float64, "fuse": True}
+        out[label] = np.asarray(bj.estimate_flow_batched(images, method, params=p))
+    return out
+
+
+def port_batched(images, method, params):
+    """The port's batched flow of (B, H, W, 2) gray pairs on the CPU in float64, as numpy."""
+    import torch
+
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched
+
+    p = {"display": False, **params, "dtype": torch.float64}
+    return estimate_flow_batched(images, method, params=p, device="cpu").numpy()
+
+
+def port_single(pair, method, params):
+    """The port's single-pair flow of an (H, W, 2) gray pair on the CPU in float64, as numpy."""
+    import torch
+
+    from optical_flow_tpu_torch.config import load_of_method
+
+    ope = load_of_method(method)
+    ope.parse_input_parameter({"display": False, **params, "dtype": torch.float64})
+    return ope.compute_flow(t(pair)).numpy()
 
 
 def jax_flow(a, b, dtype):
