@@ -87,7 +87,22 @@ Phases, each printing its results; any failed check exits non-zero:
     (sweeps by item).  Each batch is counted (no plain twin); each item is
     held to its own single-pair run (bit for bit but for SOR) and, where the
     oracle has its sequence, to its gate; then the latency of
-    ``hs-brightness`` and ``classic++`` at B = 1 and 3 beside a single frame.
+    ``hs-brightness`` and ``classic++`` at B = 1 and 3 beside a single frame;
+16. the row-sharded path, ``estimate_flow(..., mesh=flow_mesh(space=n,
+    devices=...))`` on RubberWhale 584x388 (n distinct cards where there are
+    that many, else n shards on card 0; the device list is printed):
+    classic+nl-fast with pcg over 2 shards (388 rows divide) and 3 (the
+    bottom pad), each in the classic+nl-fast gate and within 1e-3 px mean
+    |d| of the unsharded card flow, and ``ba`` over 3 in its oracle gate.
+    For each: the levels sharded and unsharded, the halo and the distributed
+    PCG's iterations by level beside the unsharded frame's kernel
+    iterations, the kernels' launches in one counted frame (the weighted
+    median once a device and warp iteration on the shards, PCG kernel
+    launches only on the unsharded levels, one ROF call, no plain twin); for
+    classic+nl-fast the finest sharded weighted-median call against its twin
+    on the same padded shards (``wmedian_valid``, as phase 4) and against one
+    launch a shard (bit for bit), and the latency (median of 3) beside the
+    unsharded frame's; ``ba`` runs one frame.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -99,8 +114,8 @@ median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
 (streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
 of each path driven (counts set to 0 just before it), the paths of phases
-9-15 included.  A line before those holds phases 13 and 15's latencies and
-phase 13's profile as JSON.  Without a CUDA device, or
+9-16 included.  A line before those holds phases 13, 15 and 16's latencies
+and phase 13's profile as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -156,6 +171,12 @@ FAMILY_BATCHES = [
     ("hs sor", "hs", {"display": False, "solver": "sor"}, ("RubberWhale", "static")),
 ]
 LATENCY_RUNS = 3
+# the row-sharded phase: classic+nl-fast over 2 shards (divides 388 rows) and
+# 3 (the bottom pad), ba over 3; mean |d| of the sharded flow from the
+# unsharded card flow (float32: the order of the distributed PCG's sums)
+SHARDS = (2, 3)
+SHARDS_BA = 3
+SHARDED_MEAN_DIFF = 1e-3
 SEED = 0
 # an H100 SXM's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -988,12 +1009,15 @@ def level_runs(solves):
 
 
 def reset_counts():
-    """Set every kernel's launch count (and PCG's iteration and item totals) to 0."""
+    """Set every kernel's launch count (PCG's iteration and item totals, the
+    weighted median's items, the distributed PCG's solves and iterations) to 0."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
+    from optical_flow_tpu_torch.parallel import dist
 
-    wmedian_kernel.launches = 0
+    wmedian_kernel.launches = wmedian_kernel.items = 0
     rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_streaming = 0
     cg_kernel.reset_stats()
+    dist.solves = dist.iterations = 0
 
 
 def read_counts():
@@ -1035,10 +1059,12 @@ def guard_tally(torch):
             setattr(m, n, fn)
 
 
-def frame_latency(torch, dev, name, params, rgb1, rgb2):
-    """Median of LATENCY_RUNS warm frames by CUDA events, the runs, and the host clock's median."""
+def frame_latency(torch, dev, name, params, rgb1, rgb2, mesh=None):
+    """Median of LATENCY_RUNS warm frames by CUDA events, the runs, and the host
+    clock's median; with ``mesh``, frames sharded on it."""
     from optical_flow_tpu_torch import estimate_flow
 
+    where = {"device": dev} if mesh is None else {"mesh": mesh}
     ev_ms, host_ms = [], []
     for _ in range(LATENCY_RUNS):
         start = torch.cuda.Event(enable_timing=True)
@@ -1046,7 +1072,7 @@ def frame_latency(torch, dev, name, params, rgb1, rgb2):
         torch.cuda.synchronize()
         t0 = time.perf_counter()
         start.record()
-        estimate_flow(rgb1, rgb2, name, params, device=dev)
+        estimate_flow(rgb1, rgb2, name, params, **where)
         end.record()
         torch.cuda.synchronize()
         host_ms.append(1e3 * (time.perf_counter() - t0))
@@ -1773,6 +1799,177 @@ def phase_batch_families(torch, dev, card, pairs):
     return launches, lat
 
 
+def shard_devices(torch, n):
+    """n distinct cards where there are that many, else n shards on card 0."""
+    count = torch.cuda.device_count()
+    return [torch.device("cuda", i if count >= n else 0) for i in range(n)]
+
+
+@contextlib.contextmanager
+def level_log(torch):
+    """Within the block, each row-sharded level step of the Classic+NL and BA
+    flow programs appends (level shape, halo, distributed PCG solves,
+    their iterations) to the list it yields: 0 solves is a level that ran
+    unsharded (too short for its halo)."""
+    from optical_flow_tpu_torch.methods import ba, classic_nl
+    from optical_flow_tpu_torch.parallel import dist
+
+    log = []
+    saved = [(m, n, getattr(m, n)) for m, n in
+             ((classic_nl, "classic_nl_level_step_spatial"), (ba, "ba_level_step_spatial"))]
+
+    def logged(fn):
+        def step(cfg, images, *args):
+            s0, i0 = dist.solves, dist.iterations
+            out = fn(cfg, images, *args)
+            log.append((tuple(images.shape[:2]), args[-1], dist.solves - s0, dist.iterations - i0))
+            return out
+        return step
+
+    for m, n, fn in saved:
+        setattr(m, n, logged(fn))
+    try:
+        yield log
+    finally:
+        for m, n, fn in saved:
+            setattr(m, n, fn)
+
+
+@contextlib.contextmanager
+def sharded_wmedian_inputs(torch):
+    """Within the block, the row-sharded levels' weighted-median calls keep a
+    copy of the inputs of the largest one (the finest level's shards) in the
+    dict they yield."""
+    from optical_flow_tpu_torch.ops.cuda import wmedian_kernel
+
+    kept, call = {}, wmedian_kernel.wmedian
+
+    def recording(*args):
+        H, W = args[4]
+        if H * W >= kept.get("size", 0):
+            kept["size"], kept["args"] = H * W, tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        return call(*args)
+
+    wmedian_kernel.wmedian = recording
+    try:
+        yield kept
+    finally:
+        wmedian_kernel.wmedian = call
+
+
+def _levels_line(log, unsharded_runs):
+    """Per level, coarse to fine: shape, halo, sharded or not, the distributed
+    PCG's iterations beside the unsharded frame's kernel iterations."""
+    return "; ".join(
+        f"{h}x{w} halo {halo}: " + (f"sharded, {its} it. (unsharded {ref})" if solves else f"unsharded ({ref} it.)")
+        for ((h, w), halo, solves, its), (_, _, ref) in zip(log, unsharded_runs))
+
+
+def phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv):
+    """Phase 16: ``estimate_flow(..., mesh=flow_mesh(space=n, devices=...))`` on
+    RubberWhale 584x388.  classic+nl-fast (pcg) over ``SHARDS`` shards and ba
+    over ``SHARDS_BA``: each in its gate, classic+nl-fast within
+    ``SHARDED_MEAN_DIFF`` mean |d| of the unsharded card flow; the levels
+    sharded and unsharded, the halo and the distributed PCG's iterations by
+    level beside the unsharded frame's; each kernel's launches in one counted
+    frame (no plain twin; the weighted median on the shards, PCG kernel
+    launches only on unsharded levels, one ROF call); the finest sharded
+    weighted-median call against its twin (within the sums' rounding, as
+    phase 4 holds the main path's input) and bit for bit against one launch
+    a shard; classic+nl-fast's latency beside the unsharded frame's.
+    Returns each path's launches and latencies."""
+    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.ops.cuda import wmedian_kernel
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
+    from optical_flow_tpu_torch.parallel import dist
+    from optical_flow_tpu_torch.parallel.mesh import flow_mesh
+
+    t_phase = time.perf_counter()
+    launches, latency = {}, {}
+    unsharded = {}
+    for name, params in (("classic+nl-fast", PARAMS), ("ba", PATH_PARAMS)):
+        with solve_log(torch, dev) as log:
+            uv = estimate_flow(rgb1, rgb2, name, params, device=dev)
+            torch.cuda.synchronize()
+        unsharded[name] = (uv.cpu().numpy(), level_runs([(shape, its[0]) for shape, its, _ in log["cg"]]))
+    frame_ms, _, _ = frame_latency(torch, dev, "classic+nl-fast", PARAMS, rgb1, rgb2)
+    latency["unsharded"] = frame_ms
+
+    runs = [("classic+nl-fast", PARAMS, n, (TARGET_AAE, TARGET_AEPE), (GATE_AAE, GATE_AEPE)) for n in SHARDS]
+    runs.append(("ba", PATH_PARAMS, SHARDS_BA, *PATH_GATES["ba"]))
+    for name, params, n, (t_aae, t_aepe), (g_aae, g_aepe) in runs:
+        label = f"sharded {name} n={n}"
+        devices = shard_devices(torch, n)
+        mesh = flow_mesh(space=n, devices=devices)
+        groups = len(set(devices))
+        print(f"{label}: mesh devices {[str(d) for d in devices]}")
+        if name == "classic+nl-fast":  # a warm-up frame; ba's one frame is its counted frame
+            estimate_flow(rgb1, rgb2, name, params, mesh=mesh)
+            torch.cuda.synchronize()
+        reset_counts()
+        with no_plain_twins(), level_log(torch) as levels, solve_log(torch, dev) as slog, \
+                sharded_wmedian_inputs(torch) as kept:
+            t0 = time.perf_counter()
+            uv = estimate_flow(rgb1, rgb2, name, params, mesh=mesh)
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        counts, by_path = read_counts()
+        items, solves, iters = wmedian_kernel.items, dist.solves, dist.iterations
+        launches[label] = counts
+        uv_np = uv.cpu().numpy()
+        check(uv_np.shape == (388, 584, 2) and uv.device == devices[0] and np.isfinite(uv_np).all(),
+              f"{label}: unexpected flow {uv_np.shape} on {uv.device}")
+        aae, _, aepe = flow_angular_error(tu, tv, uv_np[..., 0], uv_np[..., 1])
+        ref, ref_runs = unsharded[name]
+        d = np.abs(uv_np - ref)
+        sharded_levels = [lv for lv in levels if lv[2]]
+        print(f"{label} RubberWhale 584x388: AAE {aae:.4f} deg, AEPE {aepe:.5f} px (target {t_aae} / {t_aepe}, gate "
+              f"{g_aae} / {g_aepe}); against the unsharded card flow mean |d| {float(d.mean()):.3e} px, max |d| "
+              f"{float(d.max()):.3e} px, {int((d > 1e-2).sum())} of {d.size} values beyond 0.01 px; frame "
+              f"{wall:.2f} s (host clock, one host read a PCG iteration)")
+        print(f"{label}: {len(sharded_levels)} levels sharded, {len(levels) - len(sharded_levels)} unsharded; "
+              f"{solves} distributed PCG solves, {iters} iterations (the unsharded frame's kernel: "
+              f"{sum(i for _, _, i in ref_runs)}); per level, coarse to fine: {_levels_line(levels, ref_runs)}")
+        print(f"{label}: launches in one frame {counts} ({items} weighted-median items), {by_path}")
+        check(abs(aae - t_aae) <= g_aae and abs(aepe - t_aepe) <= g_aepe, f"{label}: accuracy outside the gate")
+        check(sharded_levels and solves == sum(lv[2] for lv in levels), f"{label}: no level ran sharded")
+        unsharded_solves = len(slog["cg"])
+        check(counts["cg"] == unsharded_solves == by_path["cg resident"] and counts["rof"] == 1,
+              f"{label}: PCG kernel launches {counts['cg']} for {unsharded_solves} unsharded solves, ROF {counts['rof']}")
+        if name == "classic+nl-fast":
+            check(float(d.mean()) < SHARDED_MEAN_DIFF, f"{label}: mean |d| from the unsharded flow too large")
+            check(counts["wmedian"] == solves * groups + unsharded_solves
+                  and items == solves * n + unsharded_solves,
+                  f"{label}: {counts['wmedian']} weighted-median launches of {items} items for {solves} sharded "
+                  f"and {unsharded_solves} unsharded warp iterations")
+            args = kept["args"]
+            out, twin = wmedian(*args), wmedian_plain(*args)
+            per_shard = torch.stack([wmedian(*[a[k].contiguous() for a in args[:4]], *args[4:])
+                                     for k in range(args[0].shape[0])])
+            torch.cuda.synchronize()
+            n_diff, frac, valid = 0, 1.0, True
+            for k in range(out.shape[0]):  # each shard a weighted median within the sums' rounding, as phase 4
+                nd, _, ok = wmedian_valid(torch, tuple(a[k] for a in args[:4]) + args[4:], out[k], twin[k])
+                n_diff, valid = n_diff + nd, valid and ok
+            frac = 1.0 - n_diff / out.numel()
+            print(f"{label}: the finest sharded weighted-median call ({tuple(args[0].shape)} padded shards, "
+                  f"{args[4][0]}x{args[4][1]} each, hsz {args[5]}) against its twin: bit-identical "
+                  f"{torch.equal(out, twin)}, {n_diff} of {out.numel()} values differ (max |d| "
+                  f"{float((out - twin).abs().max()):.3e}), each a median within the sums' rounding: {valid}; "
+                  f"against one launch a shard: bit-identical {torch.equal(out, per_shard)}")
+            check(frac >= WMEDIAN_SHARE and valid, f"{label}: the sharded weighted median is outside its twin's rounding")
+            check(torch.equal(out, per_shard), f"{label}: the shards' one launch differs from one launch a shard")
+            ms, runs_ms, host_ms = frame_latency(torch, dev, name, params, rgb1, rgb2, mesh=mesh)
+            latency[label] = ms
+            print(f"{label}: per-frame latency, median of {LATENCY_RUNS} warm runs: {ms:.2f} ms (CUDA events; runs "
+                  f"{', '.join(f'{x:.2f}' for x in runs_ms)}), {host_ms:.2f} ms (host clock); unsharded frame "
+                  f"{frame_ms:.2f} ms  [{card}]")
+        else:
+            check(counts["wmedian"] == 0, f"{label}: a weighted median ran")
+    print(f"sharded: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return launches, latency
+
+
 def main():
     try:
         import torch
@@ -1833,6 +2030,8 @@ def main():
             torch, dev, card, pairs, launches_by_path["batch"]["cg"])
         family_launches, family_latency = phase_batch_families(torch, dev, card, pairs)
         launches_by_path.update(family_launches)
+        sharded_launches, sharded_latency = phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv)
+        launches_by_path.update(sharded_launches)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -1850,7 +2049,8 @@ def main():
          **results[name], "library_ms": None}
         for name, (src, rep) in meta.items()
     ]
-    print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof, "families": family_latency}))
+    print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof, "families": family_latency,
+                                          "sharded": sharded_latency}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

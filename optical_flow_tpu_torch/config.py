@@ -6,6 +6,8 @@ Classic+NL, BA, Horn–Schunck and alt-BA (``classic-c-a``) families, and the
 """
 from __future__ import annotations
 
+import operator
+
 import numpy as np
 
 from optical_flow_tpu_torch.ops.penalties import Robust
@@ -168,12 +170,12 @@ _CLASSES = {
     "AltBAOpticalFlow": _alt_ba,
 }
 
-# Attributes of the JAX method object that drive JAX-only machinery (device
-# meshes, jit fusion, per-level checkpoint callbacks).  ``method_from_state``
-# accepts them only at their inert defaults.
+# Attributes of the JAX method object that drive JAX-only machinery (a JAX
+# device mesh, jit fusion, per-level checkpoint callbacks).  ``method_from_state``
+# accepts them only at their inert defaults: a JAX ``Mesh`` cannot be carried
+# across, so a caller passes the port's own mesh (``estimate_flow(mesh=)``).
 JAX_ONLY_DEFAULTS = {
     "spatial_mesh": None,
-    "spatial_halo": "auto",
     "checkpoint": None,
     "fuse": None,
     "images": None,
@@ -212,7 +214,8 @@ def method_from_state(state: dict):
     (``"ClassicNLOpticalFlow"``, ``"BAOpticalFlow"``, ``"HSOpticalFlow"`` or
     ``"AltBAOpticalFlow"``; Classic+NL when absent), and the port builds its counterpart.  Unknown
     attributes and classes raise ``KeyError``; JAX-only attributes raise
-    ``ValueError`` unless they hold their inert default.
+    ``ValueError`` unless they hold their inert default.  ``spatial_halo``
+    carries across as ``"auto"`` or an integer.
     """
     import torch
 
@@ -234,5 +237,7 @@ def method_from_state(state: dict):
             val = [Robust(name, params) for name, params in val]
         elif key in ("rho_data", "rho_couple"):
             val = Robust(*val)
+        elif key == "spatial_halo" and val != "auto":
+            val = operator.index(val)
         setattr(ope, key, val)
     return ope

@@ -3,7 +3,8 @@
 Grayscale conversion (MATLAB uint8-quantized), the Lab guide for the
 non-local term (channels rescaled to [0, 255]), parameter overrides and
 dispatch.  The device is explicit: ``"cuda"`` without a GPU raises, and the
-CPU runs only when asked for by name.
+CPU runs only when asked for by name.  A ``mesh`` (``parallel/mesh.py``)
+runs the levels row-sharded, or raises: it never computes unsharded.
 """
 from __future__ import annotations
 
@@ -26,7 +27,28 @@ def resolve_device(device, caller: str = "estimate_flow") -> torch.device:
     return dev
 
 
-def estimate_flow(im1, im2, method: str = "classic+nl-fast", params=None, device="cuda"):
+def _apply_mesh(ope, method: str, mesh, device) -> torch.device:
+    """Check that ``ope`` can run row-sharded on ``mesh``, set the mesh on it,
+    and return the device of the whole-image work: the mesh's first device."""
+    from optical_flow_tpu_torch.parallel.mesh import FlowMesh, canonical_device
+    from optical_flow_tpu_torch.parallel.spatial import check_spatial_config
+
+    if not isinstance(mesh, FlowMesh):
+        raise TypeError(f"estimate_flow(mesh=...): expected a parallel.mesh.flow_mesh(...), got {type(mesh).__name__}")
+    check_spatial_config(str(ope.interpolation_method), str(ope.solver))
+    if not ope.spatial_mesh_supported:
+        raise NotImplementedError(
+            f"estimate_flow(mesh=...): the JAX package shards {method!r} ({type(ope).__name__}), the port does not "
+            "yet: the Horn-Schunck and alt-BA sharded levels are ROADMAP item 14b"
+        )
+    first = mesh.devices[0]
+    if device is not None and canonical_device(device) != first:
+        raise ValueError(f"estimate_flow(device={device!r}) disagrees with the mesh's first device {first}")
+    ope.spatial_mesh = mesh
+    return resolve_device(first)
+
+
+def estimate_flow(im1, im2, method: str = "classic+nl-fast", params=None, device=None, mesh=None):
     """Estimate optical flow between two images.
 
     Args:
@@ -37,12 +59,21 @@ def estimate_flow(im1, im2, method: str = "classic+nl-fast", params=None, device
         params: optional dict (or MATLAB-style k/v list) of overrides, e.g.
             ``{"solver": "pcg"}``, ``{"dtype": torch.float64}`` or
             ``{"out_dtype": "float16"}``.
-        device: ``"cuda"`` (default; raises without a GPU) or ``"cpu"``.
+        device: ``"cuda"`` (the default without a mesh; raises without a GPU)
+            or ``"cpu"``.  With a mesh it defaults to the mesh's first device
+            and must name it if given.
+        mesh: optional :func:`~optical_flow_tpu_torch.parallel.mesh.flow_mesh`:
+            every pyramid level that tiles runs on its row shards (halo
+            exchange and distributed PCG, ``parallel/spatial.py``); the
+            Classic+NL and BA families shard.  ``params["spatial_halo"]``
+            fixes the warp halo; ``"auto"`` sizes it a level from the
+            incoming flow.  SOR or an unknown interpolation raises
+            ``ValueError``; Horn–Schunck and alt-BA raise
+            ``NotImplementedError`` (ROADMAP item 14b).
 
     Returns:
         uv: (H, W, 2) tensor on ``device``; uv[..., 0] horizontal, uv[..., 1] vertical.
     """
-    dev = resolve_device(device)
     im1 = np.asarray(im1)
     im2 = np.asarray(im2)
     if im1.shape != im2.shape:
@@ -51,6 +82,7 @@ def estimate_flow(im1, im2, method: str = "classic+nl-fast", params=None, device
     ope = load_of_method(method)
     if params is not None:
         ope.parse_input_parameter(params)
+    dev = resolve_device("cuda" if device is None else device) if mesh is None else _apply_mesh(ope, method, mesh, device)
     dtype = _resolve_dtype(ope.dtype)
 
     with torch.no_grad():

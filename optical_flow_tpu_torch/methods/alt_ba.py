@@ -137,6 +137,8 @@ def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = 
 class AltBAOpticalFlow(BAOpticalFlow):
     """Alternative BA with the coupled auxiliary field."""
 
+    spatial_mesh_supported = False  # its sharded level is ROADMAP item 14b
+
     def __init__(self):
         super().__init__()
         self.lambda_ = 5.0
@@ -208,6 +210,8 @@ class AltBAOpticalFlow(BAOpticalFlow):
 
     def compute_flow(self, images, color=None):
         """The auxiliary field (H, W, 2) from the (H, W, 2) gray pair; no colour guide."""
+        if self.spatial_mesh is not None:
+            raise NotImplementedError("alt-BA (classic-c-a) with a mesh: its sharded level is ROADMAP item 14b")
         sz = tuple(int(s) for s in images.shape[:2])
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
         return alt_ba_flow_program(self._make_alt_plan(sz), images, uv, uv, display=bool(self.display),

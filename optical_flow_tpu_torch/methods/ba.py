@@ -24,6 +24,7 @@ from optical_flow_tpu_torch.ops.pyramid import auto_pyramid_levels, build_pyrami
 from optical_flow_tpu_torch.ops.resample import resample_flow
 from optical_flow_tpu_torch.ops.rof import structure_texture_decomposition_rof
 from optical_flow_tpu_torch.ops.stencil import blend_systems, build_irls_system
+from optical_flow_tpu_torch.parallel.spatial import ba_level_step_spatial
 from optical_flow_tpu_torch.solvers.cg import solve_flow_system
 from optical_flow_tpu_torch.utils.compat import fspecial_gaussian, scale_image
 from optical_flow_tpu_torch.utils.guard import guard_level
@@ -121,9 +122,10 @@ def _preprocess_traced(kind: str, images, alp: float, batch_dims: int = 0):
     return scale_image(images, 0, 255, batch_dims=batch_dims)
 
 
-def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpoint=None):
+def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpoint=None, mesh=None, halo_of=None):
     """The whole GNC + coarse-to-fine BA flow; ``checkpoint(stage, level, uv)``
-    after every level, if given.
+    after every level, if given.  With a ``mesh`` each level runs
+    row-sharded (``parallel/spatial.py``) with the warp halo ``halo_of(uv)``.
 
     ``images`` (..., H, W, 2C) and ``uv`` (..., H, W, 2) may carry a leading
     batch axis: one program for B pairs of one shape, each item normalised,
@@ -144,7 +146,10 @@ def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpo
             if display:
                 print(f"  Pyramid level: {level + 1}")
             uv = resample_flow(uv, shapes[level])
-            uv = ba_level_step(cfg, cur[level], uv, alpha)
+            if mesh is None:
+                uv = ba_level_step(cfg, cur[level], uv, alpha)
+            else:
+                uv = ba_level_step_spatial(cfg, cur[level], uv, alpha, mesh, halo_of(uv))
             if checkpoint is not None:
                 checkpoint(stage_idx, level, uv)
     return uv
@@ -155,6 +160,8 @@ class BAOpticalFlow(BaseOpticalFlow):
 
     Classic+NL subclasses it with its own settings and relaxation.
     """
+
+    spatial_mesh_supported = True  # ba_level_step_spatial (parallel/spatial.py)
 
     def __init__(self):
         super().__init__()
@@ -245,4 +252,5 @@ class BAOpticalFlow(BaseOpticalFlow):
         """Flow (H, W, 2) from the (H, W, 2) gray pair; BA has no colour guide."""
         sz = tuple(int(s) for s in images.shape[:2])
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
-        return ba_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint)
+        return ba_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint,
+                               mesh=self.spatial_mesh, halo_of=self._spatial_halo_of())

@@ -22,6 +22,10 @@ def median_pair(uv, size):
 class BaseOpticalFlow:
     """Shared mutable configuration."""
 
+    # whether estimate_flow(mesh=) can run this family's levels on the row
+    # shards (parallel/spatial.py); a mesh for a family that cannot raises
+    spatial_mesh_supported = False
+
     def __init__(self):
         self.images = None
         self.lambda_ = 1.0
@@ -53,6 +57,12 @@ class BaseOpticalFlow:
         # called as checkpoint(stage, level, uv) after every pyramid level
         # (utils/checkpoint.FlowCheckpointer); it reads the flow on the host
         self.checkpoint = None
+        # row sharding: a parallel.mesh.flow_mesh runs every level that tiles
+        # on the mesh's row shards (parallel/spatial.py); spatial_halo is the
+        # largest warp displacement read exactly across a shard edge: "auto"
+        # sizes it a level from the incoming flow (_resolve_spatial_halo)
+        self.spatial_mesh = None
+        self.spatial_halo = "auto"
 
         self.pyramid_levels = 4
         self.pyramid_spacing = 2.0
@@ -87,6 +97,36 @@ class BaseOpticalFlow:
         if mfs is None:
             return None
         return (int(mfs[0]), int(mfs[1])) if hasattr(mfs, "__len__") else (int(mfs), int(mfs))
+
+    def _resolve_spatial_halo(self, uv, max_growth: int) -> int:
+        """The warp halo of a sharded level.
+
+        ``"auto"`` reads the level's incoming flow bound (one host read a
+        level) and adds ``max_growth``, the warp iterations: the ±1 update
+        clip bounds the growth an iteration, so |uv| within the level never
+        exceeds ceil(max|uv_in|) + iterations.  Rounded up to a multiple of 8.
+        """
+        h = self.spatial_halo
+        if h != "auto":
+            return int(h)
+        if not bool(self.limit_update):
+            # without the update clip no halo computed from |uv_in| is exact
+            raise ValueError(
+                "spatial_halo='auto' requires limit_update=True (the ±1 per-iteration update clip is what "
+                "bounds flow growth within a level); set an explicit integer spatial_halo or re-enable "
+                "limit_update."
+            )
+        m = float(torch.max(torch.abs(uv)))
+        if not np.isfinite(m):
+            m = 0.0
+        req = int(np.ceil(m)) + int(max_growth)
+        return max(8, -(-req // 8) * 8)
+
+    def _spatial_halo_of(self):
+        """``uv -> halo`` of each level of a sharded flow, or None without a mesh."""
+        if self.spatial_mesh is None:
+            return None
+        return lambda uv: self._resolve_spatial_halo(uv, self.max_iters)
 
     def _solver_cfg(self):
         return (

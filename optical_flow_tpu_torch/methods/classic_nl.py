@@ -21,6 +21,7 @@ from optical_flow_tpu_torch.ops.penalties import Robust
 from optical_flow_tpu_torch.ops.pyramid import auto_pyramid_levels, build_pyramid, pyramid_shapes
 from optical_flow_tpu_torch.ops.resample import resample_flow
 from optical_flow_tpu_torch.ops.wmedian import denoise_color_weighted_medfilt2
+from optical_flow_tpu_torch.parallel.spatial import classic_nl_level_step_spatial
 from optical_flow_tpu_torch.utils.guard import guard_level
 
 
@@ -80,9 +81,12 @@ def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
     return uv
 
 
-def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool = False, checkpoint=None):
+def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool = False, checkpoint=None,
+                            mesh=None, halo_of=None):
     """The whole GNC + coarse-to-fine Classic+NL flow; ``checkpoint(stage,
-    level, uv)`` after every level, if given.
+    level, uv)`` after every level, if given.  With a ``mesh`` each level
+    runs row-sharded (``parallel/spatial.py``) with the warp halo
+    ``halo_of(uv)`` of its resampled incoming flow.
 
     ``images`` (..., H, W, 2C), ``color`` (..., H, W[, C']) and ``uv``
     (..., H, W, 2) may carry a leading batch axis: one program for B pairs
@@ -113,7 +117,10 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
             if display:
                 print(f"  Pyramid level: {level + 1}")
             uv = resample_flow(uv, shapes[level])
-            uv = classic_nl_level_step(cfg, cur[level], ccur[level], uv, alpha)
+            if mesh is None:
+                uv = classic_nl_level_step(cfg, cur[level], ccur[level], uv, alpha)
+            else:
+                uv = classic_nl_level_step_spatial(cfg, cur[level], ccur[level], uv, alpha, mesh, halo_of(uv))
             if checkpoint is not None:
                 checkpoint(stage_idx, level, uv)
     return uv
@@ -121,6 +128,8 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
 
 class ClassicNLOpticalFlow(BAOpticalFlow):
     """Classic+NL with generalized Charbonnier penalties and the non-local term."""
+
+    spatial_mesh_supported = True  # classic_nl_level_step_spatial (parallel/spatial.py)
 
     def __init__(self):
         super().__init__()
@@ -209,4 +218,5 @@ class ClassicNLOpticalFlow(BAOpticalFlow):
             color = None  # the (1, 1, 3) placeholder of the preset table means "no colour"
         plan = self._make_nl_plan(sz, use_color=color is not None)
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
-        return classic_nl_flow_program(plan, images, color, uv, display=bool(self.display), checkpoint=self.checkpoint)
+        return classic_nl_flow_program(plan, images, color, uv, display=bool(self.display), checkpoint=self.checkpoint,
+                                       mesh=self.spatial_mesh, halo_of=self._spatial_halo_of())

@@ -167,6 +167,8 @@ class HSOpticalFlow(BaseOpticalFlow):
 
     def compute_flow(self, images, color=None):
         """Flow (H, W, 2) from the (H, W, 2) gray pair; HS has no colour guide."""
+        if self.spatial_mesh is not None:
+            raise NotImplementedError("Horn-Schunck with a mesh: its sharded level is ROADMAP item 14b")
         sz = tuple(int(s) for s in images.shape[:2])
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
         return hs_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint)

@@ -33,6 +33,7 @@ from optical_flow_tpu_torch.ops.cuda.build import check, current_stream, load_li
 
 MAX_HSZ = 12  # the register kernel's widest window; wider ones run the wide kernel
 launches = 0  # kernel launches (one per call, whatever the batch)
+items = 0  # flows filtered by the kernel (B per call)
 
 
 def wide_fits(hsz: int) -> bool:
@@ -106,7 +107,7 @@ def wmedian(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz: int, sigma_i: float):
     CUDA tensors run the kernel (the wide kernel above hsz 12); anything else
     raises.
     """
-    global launches
+    global launches, items
     if u_pad.device.type == "cpu":
         return wmedian_plain(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz, sigma_i)
     require_cuda_f32("wmedian", u_pad, v_pad, occ_pad, guide_pad)
@@ -123,10 +124,12 @@ def wmedian(u_pad, v_pad, occ_pad, guide_pad, out_hw, hsz: int, sigma_i: float):
     B = math.prod(batch)
     lib = load_library()
     out = torch.empty((*batch, H, W, 2), dtype=torch.float32, device=u_pad.device)
-    err = lib.wmedian_f32(
-        u_pad.data_ptr(), v_pad.data_ptr(), occ_pad.data_ptr(), guide_pad.data_ptr(), out.data_ptr(),
-        B, C, H, W, hsz, float(1.0 / (2.0 * sigma_i**2)), current_stream(u_pad.device),
-    )
+    with torch.cuda.device(u_pad.device):  # the library launches on the current device
+        err = lib.wmedian_f32(
+            u_pad.data_ptr(), v_pad.data_ptr(), occ_pad.data_ptr(), guide_pad.data_ptr(), out.data_ptr(),
+            B, C, H, W, hsz, float(1.0 / (2.0 * sigma_i**2)), current_stream(u_pad.device),
+        )
     check(err, "wmedian_f32")
     launches += 1
+    items += B
     return out

@@ -42,12 +42,14 @@ def _pad_index_tensor(n: int, before: int, after: int, boundary: str, device) ->
     return torch.as_tensor(pad_index(n, before, after, boundary), device=device)
 
 
+def pad_axis(x, dim: int, before: int, after: int, boundary: str):
+    """Pad axis ``dim`` of ``x`` with scipy.ndimage boundary semantics."""
+    return x.index_select(dim, _pad_index_tensor(x.shape[dim], before, after, boundary, x.device))
+
+
 def pad2d(im, pad_t: int, pad_b: int, pad_l: int, pad_r: int, boundary: str):
     """Pad the last two axes of ``im`` with scipy.ndimage boundary semantics."""
-    H, W = im.shape[-2:]
-    ri = _pad_index_tensor(H, pad_t, pad_b, boundary, im.device)
-    ci = _pad_index_tensor(W, pad_l, pad_r, boundary, im.device)
-    return im.index_select(-2, ri).index_select(-1, ci)
+    return pad_axis(pad_axis(im, -2, pad_t, pad_b, boundary), -1, pad_l, pad_r, boundary)
 
 
 def correlate2d(im, kernel, boundary: str = "reflect"):
@@ -60,14 +62,21 @@ def correlate2d(im, kernel, boundary: str = "reflect"):
     kh, kw = kernel.shape
     cy, cx = kh // 2, kw // 2
     padded = pad2d(im, cy, kh - 1 - cy, cx, kw - 1 - cx, boundary)
-    H, W = im.shape[-2:]
-    out = torch.zeros_like(im)
+    return correlate_padded(padded, kernel, *im.shape[-2:])
+
+
+def correlate_padded(padded, kernel, H: int, W: int, row0: int = 0):
+    """The (..., H, W) correlation of ``padded`` (already extended by the
+    kernel's radius on every side) with the constant 2-D ``kernel``; its
+    window rows start ``row0`` rows into ``padded``."""
+    kh, kw = kernel.shape
+    out = torch.zeros(padded.shape[:-2] + (H, W), dtype=padded.dtype, device=padded.device)
     for dy in range(kh):
         for dx in range(kw):
             w = float(kernel[dy, dx])
             if w == 0.0:
                 continue
-            out = out + w * padded[..., dy : dy + H, dx : dx + W]
+            out = out + w * padded[..., row0 + dy : row0 + dy + H, dx : dx + W]
     return out
 
 
@@ -96,9 +105,14 @@ def median_filter2d(im, size, boundary: str = "reflect"):
         kh = kw = int(size)
     cy, cx = kh // 2, kw // 2
     padded = pad2d(im, cy, kh - 1 - cy, cx, kw - 1 - cx, boundary)
-    H, W = im.shape[-2:]
+    return median_of_windows(padded, *im.shape[-2:], kh, kw)
+
+
+def median_of_windows(padded, H: int, W: int, kh: int, kw: int):
+    """The value of rank ``kh*kw // 2`` of each (kh, kw) window of ``padded``
+    (..., H + kh - 1, W + kw - 1), as :func:`median_filter2d` selects it."""
     n = kh * kw
-    scrub = n <= 49 and im.is_floating_point()
+    scrub = n <= 49 and padded.is_floating_point()
     if scrub:
         padded = torch.where(torch.isnan(padded), torch.inf, padded)
     stack = torch.stack([padded[..., dy : dy + H, dx : dx + W] for dy in range(kh) for dx in range(kw)], dim=-1)

@@ -16,7 +16,7 @@ ends each item's warp loop on its own, as ``jax.vmap`` of the JAX
 package's whole-flow programs does, so each item gets its single-pair flow
 (up to the order of the kernels' sums).
 
-A ``mesh`` raises (ROADMAP item 14).  ``fuse`` (TPU compile plumbing in
+A ``mesh`` raises: the batch x space mesh is ROADMAP item 14b.  ``fuse`` (TPU compile plumbing in
 the JAX package) is accepted and ignored.
 """
 from __future__ import annotations
@@ -38,7 +38,7 @@ __all__ = ["estimate_flow_batched", "estimate_flow_batched_rgb", "preprocess_col
 def _batched_method(method: str, mesh, params, caller: str):
     """The method object of ``method`` with ``params``; raises for a ``mesh``."""
     if mesh is not None:
-        raise NotImplementedError(f"{caller}(mesh=...): multi-GPU sharding is ROADMAP item 14")
+        raise NotImplementedError(f"{caller}(mesh=...): the batch x space mesh is ROADMAP item 14b")
     ope = load_of_method(method)
     if params is not None:
         ope.parse_input_parameter(params)

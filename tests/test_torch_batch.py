@@ -21,6 +21,10 @@ from torch_parity import REPO_DATA_DIR, SLICE_CROP32, t  # noqa: E402
 
 SEQS = ("RubberWhale", "Hydrangea", "Dimetrodon", "RubberWhale")
 PARAMS = {"display": False, "solver": "pcg"}
+# the JAX batches' schedule: both GNC stages at the one 48x64 level, so JAX
+# compiles one level program a route instead of four (the batched levels of a
+# pyramid are held to JAX by test_torch_video.py and test_torch_batch_irls.py)
+FLOW_PARAMS = {**PARAMS, "auto_level": False, "pyramid_levels": 1, "gnc_pyramid_levels": 1}
 H100 = (132, 232448)  # SMs, shared memory a block may opt in to
 MAIN_PATH_LEVELS = [(388, 584), (310, 467), (194, 292), (97, 146), (49, 73), (25, 37)]
 
@@ -50,8 +54,8 @@ def batch():
 
     im1, im2 = _crop_batch()
     images, color = (np.asarray(x) for x in bj.preprocess_color_batch(im1, im2, dtype=jnp.float64))
-    pj = {**PARAMS, "dtype": jnp.float64}
-    pp = {**PARAMS, "dtype": torch.float64}
+    pj = {**FLOW_PARAMS, "dtype": jnp.float64}
+    pp = {**FLOW_PARAMS, "dtype": torch.float64}
     out = {"im1": im1, "im2": im2, "images": images, "color": color}
     out["jax_guided"] = np.asarray(bj.estimate_flow_batched(images, "classic+nl-fast", params=pj, color_batch=color))
     out["jax_plain"] = np.asarray(bj.estimate_flow_batched(images, "classic+nl-fast", params=pj))
@@ -98,7 +102,7 @@ def test_batched_items_equal_their_single_pair_flows(batch, route):
     from optical_flow_tpu_torch.config import load_of_method
 
     ope = load_of_method("classic+nl-fast")
-    ope.parse_input_parameter({**PARAMS, "dtype": torch.float64})
+    ope.parse_input_parameter({**FLOW_PARAMS, "dtype": torch.float64})
     for k in range(4):
         color = t(batch["color"][k]) if route == "guided" else None
         single = ope.compute_flow(t(batch["images"][k]), color).numpy()

@@ -14,6 +14,10 @@ torch = pytest.importorskip("torch")
 from torch_parity import flows, rubberwhale_crop  # noqa: E402
 
 CROP = dict(h=32, w=40, y0=220, x0=200)
+# schedules whose levels share JAX's level programs: the main and the GNC
+# pyramids at one level each, or at one spacing (2 levels, 2 compiles, not 4)
+ONE_LEVEL = {"auto_level": False, "pyramid_levels": 1, "gnc_pyramid_levels": 1}
+SHARED_SPACING = {"gnc_pyramid_spacing": 2.0}
 
 
 @pytest.mark.parametrize("method,channels,extra", [
@@ -43,7 +47,7 @@ class Recorder:
 
 
 @pytest.mark.parametrize("method,extra", [
-    ("classic+nl-fast", {"solver": "pcg", "max_iters": 1}),
+    ("classic+nl-fast", {"solver": "pcg", "max_iters": 1, **SHARED_SPACING}),
     ("ba", {"max_iters": 1}),
     ("hs", {"max_warping_iters": 2}),
     ("classic-c-a", {"max_iters": 2, "lambda2": 0.01, "gnc_iters": 2}),  # a stable trajectory
@@ -123,8 +127,12 @@ def test_weighted_median_wider_than_the_kernel_matches_jax(hsz):
 
 
 def test_flow_with_area_hsz_13_matches_jax():
+    """The whole flow at hsz 13 (JAX's sort route, the port's wide-window
+    path), both GNC stages at one pyramid level each: JAX then compiles one
+    level program (~25 s alone) instead of four."""
     a, b, _, _ = rubberwhale_crop(**CROP)
-    uv_j, uv_p = flows(a, b, "classic+nl-fast", {"display": False, "solver": "pcg", "area_hsz": 13, "max_iters": 1})
+    uv_j, uv_p = flows(a, b, "classic+nl-fast", {"display": False, "solver": "pcg", "area_hsz": 13, "max_iters": 1,
+                                                 **ONE_LEVEL})
     assert np.abs(uv_p - uv_j).max() <= 1e-6
 
 
