@@ -102,7 +102,21 @@ Phases, each printing its results; any failed check exits non-zero:
     classic+nl-fast the finest sharded weighted-median call against its twin
     on the same padded shards (``wmedian_valid``, as phase 4) and against one
     launch a shard (bit for bit), and the latency (median of 3) beside the
-    unsharded frame's; ``ba`` runs one frame.
+    unsharded frame's; ``ba`` runs one frame;
+17. one process over a list of devices (n distinct cards where there are
+    that many, else card 0; the device lists are printed): ``hs`` and the
+    stable ``classic-c-a`` through ``estimate_flow(mesh=flow_mesh(space=2))``
+    (each in its gate and within 1e-3 px mean |d| of the unsharded card
+    flow; levels sharded and unsharded, warp iterations and distributed PCG
+    iterations by level beside the unsharded frame's, PCG kernel launches
+    only on the unsharded levels, one ROF call, no plain twin, one frame's
+    host-clock time); ``estimate_flow_batched_rgb`` for classic+nl-fast and
+    ``hs-brightness`` on phase 12's pairs over ``flow_mesh(batch=2,
+    space=1)`` (each item bit-identical to the unmeshed batch's, launches by
+    batch row and device); ``estimate_flow_pipelined`` over those pairs,
+    classic+nl-fast with pcg at ``n_stages=3`` (the stage partition, each
+    flow bit-identical to its ``estimate_flow`` and in order, four frames'
+    launches, the time a pair over the stream beside a single frame).
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -114,8 +128,8 @@ median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
 (streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
 of each path driven (counts set to 0 just before it), the paths of phases
-9-16 included.  A line before those holds phases 13, 15 and 16's latencies
-and phase 13's profile as JSON.  Without a CUDA device, or
+9-17 included.  A line before those holds phases 13, 15, 16 and 17's
+latencies and phase 13's profile as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -177,6 +191,20 @@ LATENCY_RUNS = 3
 SHARDS = (2, 3)
 SHARDS_BA = 3
 SHARDED_MEAN_DIFF = 1e-3
+# the multi-device phase: hs and the stable alt-BA row-sharded over 2 shards
+# (label, method, params, gate); meshed batches over 2 batch rows (method,
+# params, launches of a row of 2 items); a pipeline of 3 stage groups
+SHARDS_HS_ALT = 2
+SHARDED_FAMILIES = [
+    ("hs", "hs", PATH_PARAMS, PATH_GATES["hs"]),
+    ("classic-c-a stable", "classic-c-a", ALT_STABLE, ALT_STABLE_GATE),
+]
+MESH_BATCH_ROWS = 2
+MESH_BATCHES = [
+    ("classic+nl-fast", PARAMS, {"wmedian": 21, "rof": 1}),
+    ("hs-brightness", PATH_PARAMS, {"wmedian": 0, "rof": 0}),
+]
+PIPELINE_STAGES = 3
 SEED = 0
 # an H100 SXM's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -1807,22 +1835,25 @@ def shard_devices(torch, n):
 
 @contextlib.contextmanager
 def level_log(torch):
-    """Within the block, each row-sharded level step of the Classic+NL and BA
-    flow programs appends (level shape, halo, distributed PCG solves,
-    their iterations) to the list it yields: 0 solves is a level that ran
-    unsharded (too short for its halo)."""
-    from optical_flow_tpu_torch.methods import ba, classic_nl
+    """Within the block, each row-sharded level step of the four families'
+    flow programs appends (level shape, halo, distributed PCG solves, their
+    iterations, PCG kernel launches) to the list it yields: 0 solves is a
+    level that ran unsharded (too short for its halo), on the kernel."""
+    from optical_flow_tpu_torch.methods import alt_ba, ba, classic_nl, hs
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
     from optical_flow_tpu_torch.parallel import dist
 
     log = []
     saved = [(m, n, getattr(m, n)) for m, n in
-             ((classic_nl, "classic_nl_level_step_spatial"), (ba, "ba_level_step_spatial"))]
+             ((classic_nl, "classic_nl_level_step_spatial"), (ba, "ba_level_step_spatial"),
+              (hs, "hs_level_step_spatial"), (alt_ba, "alt_ba_level_step_spatial"))]
 
     def logged(fn):
         def step(cfg, images, *args):
-            s0, i0 = dist.solves, dist.iterations
+            s0, i0, k0 = dist.solves, dist.iterations, cg_kernel.launches
             out = fn(cfg, images, *args)
-            log.append((tuple(images.shape[:2]), args[-1], dist.solves - s0, dist.iterations - i0))
+            log.append((tuple(images.shape[:2]), args[-1], dist.solves - s0, dist.iterations - i0,
+                        cg_kernel.launches - k0))
             return out
         return step
 
@@ -1862,7 +1893,7 @@ def _levels_line(log, unsharded_runs):
     PCG's iterations beside the unsharded frame's kernel iterations."""
     return "; ".join(
         f"{h}x{w} halo {halo}: " + (f"sharded, {its} it. (unsharded {ref})" if solves else f"unsharded ({ref} it.)")
-        for ((h, w), halo, solves, its), (_, _, ref) in zip(log, unsharded_runs))
+        for ((h, w), halo, solves, its, _), (_, _, ref) in zip(log, unsharded_runs))
 
 
 def phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv):
@@ -1970,6 +2001,185 @@ def phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv):
     return launches, latency
 
 
+def _warps_line(log, unsharded_runs):
+    """Per level, coarse to fine: sharded or not, the warp iterations (one solve
+    each) and the distributed PCG's iterations beside the unsharded frame's."""
+    return "; ".join(
+        f"{h}x{w} halo {halo}: " + (f"sharded, {solves} warp it., {its} PCG it." if solves else
+                                    f"unsharded, {kernel} warp it.")
+        + f" (unsharded {ref_solves} warp it., {ref_its} PCG it.)"
+        for ((h, w), halo, solves, its, kernel), (_, ref_solves, ref_its) in zip(log, unsharded_runs))
+
+
+def phase_sharded_families(torch, dev, card, rgb1, rgb2, tu, tv):
+    """Phase 17a: ``hs`` and the stable ``classic-c-a`` through
+    ``estimate_flow(..., mesh=flow_mesh(space=SHARDS_HS_ALT))``: each in its gate
+    and within ``SHARDED_MEAN_DIFF`` mean |d| of the unsharded card flow; the
+    levels sharded and unsharded, the warp iterations and the distributed PCG's
+    iterations by level beside the unsharded frame's; the launches of one
+    counted frame (no plain twin; PCG kernel launches only on the unsharded
+    levels, one ROF call, no weighted median) and its host-clock time."""
+    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.parallel import dist
+    from optical_flow_tpu_torch.parallel.mesh import flow_mesh
+
+    launches, latency = {}, {}
+    devices = shard_devices(torch, SHARDS_HS_ALT)
+    mesh = flow_mesh(space=SHARDS_HS_ALT, devices=devices)
+    for label, name, params, ((t_aae, t_aepe), (g_aae, g_aepe)) in SHARDED_FAMILIES:
+        with solve_log(torch, dev) as log:
+            t0 = time.perf_counter()
+            ref = estimate_flow(rgb1, rgb2, name, params, device=dev)
+            torch.cuda.synchronize()
+            ref_ms = 1e3 * (time.perf_counter() - t0)
+        ref_runs = level_runs([(shape, its[0]) for shape, its, _ in log["cg"]])
+        ref = ref.cpu().numpy()
+        path = f"sharded {label} n={SHARDS_HS_ALT}"
+        print(f"{path}: mesh devices {[str(d) for d in devices]}")
+        reset_counts()
+        with no_plain_twins(), level_log(torch) as levels, solve_log(torch, dev) as slog:
+            t0 = time.perf_counter()
+            uv = estimate_flow(rgb1, rgb2, name, params, mesh=mesh)
+            torch.cuda.synchronize()
+            wall_ms = 1e3 * (time.perf_counter() - t0)
+        counts, by_path = read_counts()
+        solves, iters = dist.solves, dist.iterations
+        launches[path], latency[path] = counts, wall_ms
+        uv_np = uv.cpu().numpy()
+        check(uv_np.shape == (388, 584, 2) and uv.device == devices[0] and np.isfinite(uv_np).all(),
+              f"{path}: unexpected flow {uv_np.shape} on {uv.device}")
+        aae, _, aepe = flow_angular_error(tu, tv, uv_np[..., 0], uv_np[..., 1])
+        d = np.abs(uv_np - ref)
+        sharded = [lv for lv in levels if lv[2]]
+        print(f"{path} RubberWhale 584x388: AAE {aae:.4f} deg, AEPE {aepe:.5f} px (target {t_aae} / {t_aepe}, gate "
+              f"{g_aae} / {g_aepe}); against the unsharded card flow mean |d| {float(d.mean()):.3e} px, max |d| "
+              f"{float(d.max()):.3e} px; frame {wall_ms:.2f} ms against {ref_ms:.2f} ms unsharded (host clock, one "
+              f"frame each; one host read a distributed PCG iteration)  [{card}]")
+        print(f"{path}: {len(sharded)} levels sharded, {len(levels) - len(sharded)} unsharded; {solves} distributed "
+              f"PCG solves, {iters} iterations (the unsharded frame's kernel: {sum(i for _, _, i in ref_runs)}); per "
+              f"level, coarse to fine: {_warps_line(levels, ref_runs)}")
+        print(f"{path}: launches in one frame {counts}, {by_path}")
+        check(abs(aae - t_aae) <= g_aae and abs(aepe - t_aepe) <= g_aepe, f"{path}: accuracy outside the gate")
+        check(float(d.mean()) < SHARDED_MEAN_DIFF, f"{path}: mean |d| from the unsharded flow too large")
+        check(sharded and solves == sum(lv[2] for lv in levels), f"{path}: no level ran sharded")
+        unsharded_solves = len(slog["cg"])
+        check(counts["cg"] == unsharded_solves == by_path["cg resident"] == sum(lv[4] for lv in levels)
+              and counts["rof"] == 1 and counts["wmedian"] == 0,
+              f"{path}: PCG kernel launches {counts['cg']} for {unsharded_solves} unsharded solves, {counts}")
+    return launches, latency
+
+
+def _per_device_launches(torch):
+    """Within the block, each unmeshed ``estimate_flow_batched`` call (one a
+    batch row of a meshed batch) appends (its device, its items, the kernels'
+    launches during it) to the list it yields."""
+    from optical_flow_tpu_torch.parallel import batch as bp
+
+    log, call = [], bp.estimate_flow_batched
+
+    def counted(images_batch, *args, **kwargs):
+        if kwargs.get("mesh") is not None:
+            return call(images_batch, *args, **kwargs)
+        before = read_counts()[0]
+        out = call(images_batch, *args, **kwargs)
+        after = read_counts()[0]
+        log.append((str(out.device), len(images_batch), {k: after[k] - before[k] for k in after}))
+        return out
+
+    bp.estimate_flow_batched = counted
+    return log, lambda: setattr(bp, "estimate_flow_batched", call)
+
+
+def phase_mesh_batches(torch, dev, card, pairs):
+    """Phase 17b: ``estimate_flow_batched_rgb`` over ``flow_mesh(batch=2,
+    space=1)`` on the batch phase's four pairs, ``MESH_BATCHES``: each item
+    bit-identical to the same item of the unmeshed batch, the launches by
+    batch row and device (no plain twin)."""
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
+    from optical_flow_tpu_torch.parallel.mesh import flow_mesh
+
+    im1, im2 = _batch_of(pairs)
+    devices = shard_devices(torch, MESH_BATCH_ROWS)
+    mesh = flow_mesh(batch=MESH_BATCH_ROWS, space=1, devices=devices)
+    launches = {}
+    for name, params, expected in MESH_BATCHES:
+        path = f"mesh batch {name}"
+        ref = estimate_flow_batched_rgb(im1, im2, name, params=params, device=dev)
+        estimate_flow_batched_rgb(im1, im2, name, mesh=mesh, params=params)  # warm-up
+        torch.cuda.synchronize()
+        reset_counts()
+        rows, restore = _per_device_launches(torch)
+        try:
+            with no_plain_twins():
+                start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+                start.record()
+                uv = estimate_flow_batched_rgb(im1, im2, name, mesh=mesh, params=params)
+                end.record()
+                torch.cuda.synchronize()
+        finally:
+            restore()
+        counts, by_path = read_counts()
+        launches[path] = counts
+        same = [bool(torch.equal(uv[k], ref[k])) for k in range(len(pairs))]
+        print(f"{path}: flow_mesh(batch={MESH_BATCH_ROWS}, space=1) over {[str(d) for d in devices]}: "
+              f"{start.elapsed_time(end):.2f} ms for {len(pairs)} pairs (CUDA events); each item bit-identical to "
+              f"the unmeshed batch's: {same}; launches {counts}, {by_path}; by batch row (device, items, launches): "
+              f"{rows}  [{card}]")
+        check(uv.shape == ref.shape and uv.device == devices[0] and all(same),
+              f"{path}: a meshed item differs from the unmeshed batch's")
+        check(len(rows) == MESH_BATCH_ROWS and [r[0] for r in rows] == [str(d) for d in devices]
+              and all(r[1] == len(pairs) // MESH_BATCH_ROWS for r in rows), f"{path}: batch rows {rows}")
+        check(all(r[2]["wmedian"] == expected["wmedian"] and r[2]["rof"] == expected["rof"] for r in rows)
+              and counts["cg"] == sum(r[2]["cg"] for r in rows) > 0, f"{path}: launches by row {rows}")
+    return launches
+
+
+def phase_pipeline(torch, dev, card, pairs, frame_ms):
+    """Phase 17c: ``estimate_flow_pipelined`` over the batch phase's four pairs,
+    classic+nl-fast with pcg, ``n_stages=PIPELINE_STAGES`` on distinct cards
+    where there are that many: the stage partition, each flow bit-identical to
+    its ``estimate_flow`` and in order, four frames' launches (no plain twin),
+    and the time a pair over the stream (CUDA events) beside a single frame."""
+    from optical_flow_tpu_torch import estimate_flow, estimate_flow_pipelined
+    from optical_flow_tpu_torch.config import load_of_method
+    from optical_flow_tpu_torch.parallel.pipeline import _partition, build_pipeline_schedule
+
+    devices = shard_devices(torch, PIPELINE_STAGES)
+    ope = load_of_method("classic+nl-fast")
+    ope.parse_input_parameter(PARAMS)
+    steps = build_pipeline_schedule(ope, (388, 584), use_color=True).steps
+    groups = _partition([st.cost for st in steps], PIPELINE_STAGES)
+    print("pipeline classic+nl-fast: stages " + "; ".join(
+        f"{devices[g % len(devices)]}: " + ", ".join(f"{steps[i].label} ({steps[i].cost})" for i in group)
+        for g, group in enumerate(groups)))
+    stream = [(p[1], p[2]) for p in pairs]
+    refs = [estimate_flow(a, b, "classic+nl-fast", PARAMS, device=dev) for a, b in stream]
+    list(estimate_flow_pipelined(stream, "classic+nl-fast", PARAMS, devices=devices,
+                                 n_stages=PIPELINE_STAGES))  # warm-up
+    torch.cuda.synchronize()
+    reset_counts()
+    with no_plain_twins():
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
+        outs = list(estimate_flow_pipelined(iter(stream), "classic+nl-fast", PARAMS, devices=devices,
+                                            n_stages=PIPELINE_STAGES))
+        for d in set(devices):
+            torch.cuda.synchronize(d)
+        end.record()
+        torch.cuda.synchronize()
+    counts, by_path = read_counts()
+    pair_ms = start.elapsed_time(end) / len(stream)
+    same = [bool(torch.equal(o.to(r.device), r)) for o, r in zip(outs, refs)]
+    print(f"pipeline classic+nl-fast: {len(outs)} pairs over {[str(d) for d in devices]}, n_stages "
+          f"{PIPELINE_STAGES}, depth {len(groups) + 1}: {pair_ms:.2f} ms a pair over the stream (CUDA events) "
+          f"against a {frame_ms:.2f} ms single frame; each flow bit-identical to its estimate_flow, in order: {same}; "
+          f"launches {counts}, {by_path}  [{card}]")
+    check(len(outs) == len(stream) and all(same), "pipeline: a flow differs from its estimate_flow")
+    check(counts == {"wmedian": 21 * len(stream), "cg": 21 * len(stream), "rof": len(stream)},
+          f"pipeline: launches {counts}")
+    return counts, {"pipeline_pair_ms": pair_ms, "single_frame_ms": frame_ms}
+
+
 def main():
     try:
         import torch
@@ -2032,6 +2242,13 @@ def main():
         launches_by_path.update(family_launches)
         sharded_launches, sharded_latency = phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv)
         launches_by_path.update(sharded_launches)
+        t_phase = time.perf_counter()
+        family_launches, family_ms = phase_sharded_families(torch, dev, card, rgb1, rgb2, tu, tv)
+        launches_by_path.update(family_launches)
+        launches_by_path.update(phase_mesh_batches(torch, dev, card, pairs))
+        launches_by_path["pipeline classic+nl-fast"], pipeline_ms = phase_pipeline(
+            torch, dev, card, pairs, sharded_latency["unsharded"])
+        print(f"multi-device: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2050,7 +2267,8 @@ def main():
         for name, (src, rep) in meta.items()
     ]
     print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof, "families": family_latency,
-                                          "sharded": sharded_latency}))
+                                          "sharded": sharded_latency,
+                                          "multi_device": {"sharded_host_ms": family_ms, **pipeline_ms}}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -15,6 +15,10 @@ the coupling unconditionally.  At the coarsest level, where uv == uvhat ==
 port, like the JAX package, always couples and keeps the attribute only
 for configuration parity.  So are ``seg``, ``mfT``, ``imfsz`` and
 ``weightRatio``.
+
+With a mesh (``estimate_flow(mesh=)``) each level that tiles runs on the
+row shards (``parallel/spatial.py::alt_ba_level_step_spatial``); both
+fields are resampled every level and the warp halo is sized from ``uv``.
 """
 from __future__ import annotations
 
@@ -27,16 +31,17 @@ import torch
 from optical_flow_tpu_torch.methods.ba import (
     BAOpticalFlow,
     IRLSLevelConfig,
-    _preprocess_traced,
+    irls_pyramids,
     blended_system,
     solve_update,
 )
 from optical_flow_tpu_torch.ops.denoise import denoise_LO
 from optical_flow_tpu_torch.ops.derivatives import precompute_warp, warp_deriv
 from optical_flow_tpu_torch.ops.penalties import Robust
-from optical_flow_tpu_torch.ops.pyramid import auto_pyramid_levels, build_pyramid, pyramid_shapes
+from optical_flow_tpu_torch.ops.pyramid import auto_pyramid_levels, pyramid_shapes
 from optical_flow_tpu_torch.ops.resample import resample_flow
 from optical_flow_tpu_torch.ops.stencil import add_coupling
+from optical_flow_tpu_torch.parallel.spatial import alt_ba_level_step_spatial
 from optical_flow_tpu_torch.utils.guard import guard_level_pair
 
 
@@ -102,20 +107,26 @@ class AltBAFlowPlan:
     stages: Tuple[Tuple[AltBALevelConfig, float, bool], ...]  # (cfg, alpha, replacement)
 
 
-def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = False, checkpoint=None):
+def alt_ba_pyramids(plan: AltBAFlowPlan, images, batch_dims: int = 0):
+    """(the ``plan.spacing`` pyramid, the GNC pyramid) of the preprocessed
+    images: the texture route runs ROF at its default ``alp`` 0.95, whatever
+    the method's ``alp``, as the reference does."""
+    return irls_pyramids("texture" if plan.texture else "scale", 0.95, plan, images, batch_dims)
+
+
+def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = False, checkpoint=None, mesh=None,
+                        halo_of=None):
     """The whole GNC + coarse-to-fine Alt-BA flow; returns the auxiliary field.
     ``checkpoint(stage, level, uv)`` after every level, if given (``uv``,
-    not the auxiliary field, as in the JAX package).
+    not the auxiliary field, as in the JAX package).  With a ``mesh`` each
+    level runs row-sharded with the warp halo ``halo_of(uv)``.
 
-    The texture route runs ROF at its default ``alp`` 0.95, whatever the
-    method's ``alp``, as the reference does.  ``images`` (..., H, W, 2C) and
+    ``images`` (..., H, W, 2C) and
     the fields (..., H, W, 2) may carry a leading batch axis: one program for
     B pairs of one shape, each item normalised and guarded on its own.
     """
     nb = images.ndim - 3  # leading batch axes
-    proc = _preprocess_traced("texture" if plan.texture else "scale", images, 0.95, nb)
-    pyramid = build_pyramid(proc, plan.levels, plan.spacing, nb)
-    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, nb)
+    pyramid, gnc_pyramid = alt_ba_pyramids(plan, images, nb)
     for stage_idx, (cfg, alpha, replacement) in enumerate(plan.stages):
         if display:
             print(f"GNC stage: {stage_idx + 1}")
@@ -128,7 +139,12 @@ def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = 
                 print(f"  Pyramid level: {level + 1}")
             uv = resample_flow(uv, shapes[level])
             uvhat = resample_flow(uvhat, shapes[level])
-            uv, uvhat = alt_ba_level_step(cfg, cur[level], uv, uvhat, alpha, replacement)
+            if mesh is None:
+                uv, uvhat = alt_ba_level_step(cfg, cur[level], uv, uvhat, alpha, replacement)
+            else:
+                # the warp reads only uv; uvhat, its median, stays within uv's range
+                uv, uvhat = alt_ba_level_step_spatial(cfg, cur[level], uv, uvhat, alpha, replacement, mesh,
+                                                      halo_of(uv))
             if checkpoint is not None:
                 checkpoint(stage_idx, level, uv)
     return uvhat
@@ -136,8 +152,6 @@ def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = 
 
 class AltBAOpticalFlow(BAOpticalFlow):
     """Alternative BA with the coupled auxiliary field."""
-
-    spatial_mesh_supported = False  # its sharded level is ROADMAP item 14b
 
     def __init__(self):
         super().__init__()
@@ -210,12 +224,10 @@ class AltBAOpticalFlow(BAOpticalFlow):
 
     def compute_flow(self, images, color=None):
         """The auxiliary field (H, W, 2) from the (H, W, 2) gray pair; no colour guide."""
-        if self.spatial_mesh is not None:
-            raise NotImplementedError("alt-BA (classic-c-a) with a mesh: its sharded level is ROADMAP item 14b")
         sz = tuple(int(s) for s in images.shape[:2])
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
         return alt_ba_flow_program(self._make_alt_plan(sz), images, uv, uv, display=bool(self.display),
-                                   checkpoint=self.checkpoint)
+                                   checkpoint=self.checkpoint, mesh=self.spatial_mesh, halo_of=self._spatial_halo_of())
 
     def compute_flow_base(self, images, uv, uvhat=None):
         """One level at the method's own ``alpha`` and ``replacement``, from ``uv``

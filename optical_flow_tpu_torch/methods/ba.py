@@ -122,6 +122,14 @@ def _preprocess_traced(kind: str, images, alp: float, batch_dims: int = 0):
     return scale_image(images, 0, 255, batch_dims=batch_dims)
 
 
+def irls_pyramids(kind: str, alp: float, plan, images, batch_dims: int = 0):
+    """(the ``plan.spacing`` pyramid, the GNC pyramid) of ``images``
+    preprocessed by ``kind`` (:func:`_preprocess_traced`), finest first."""
+    proc = _preprocess_traced(kind, images, alp, batch_dims)
+    return (build_pyramid(proc, plan.levels, plan.spacing, batch_dims),
+            build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, batch_dims))
+
+
 def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpoint=None, mesh=None, halo_of=None):
     """The whole GNC + coarse-to-fine BA flow; ``checkpoint(stage, level, uv)``
     after every level, if given.  With a ``mesh`` each level runs
@@ -132,9 +140,7 @@ def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpo
     solved and guarded on its own.
     """
     nb = images.ndim - 3  # leading batch axes
-    proc = _preprocess_traced(plan.preprocess, images, plan.alp, nb)
-    pyramid = build_pyramid(proc, plan.levels, plan.spacing, nb)
-    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, nb)
+    pyramid, gnc_pyramid = irls_pyramids(plan.preprocess, plan.alp, plan, images, nb)
     for stage_idx, (cfg, alpha) in enumerate(plan.stages):
         if display:
             print(f"GNC stage: {stage_idx + 1}")

@@ -122,11 +122,13 @@ class BaseOpticalFlow:
         req = int(np.ceil(m)) + int(max_growth)
         return max(8, -(-req // 8) * 8)
 
-    def _spatial_halo_of(self):
-        """``uv -> halo`` of each level of a sharded flow, or None without a mesh."""
+    def _spatial_halo_of(self, max_growth=None):
+        """``uv -> halo`` of each level of a sharded flow, or None without a mesh;
+        ``max_growth`` is the level's warp iterations (default ``max_iters``)."""
         if self.spatial_mesh is None:
             return None
-        return lambda uv: self._resolve_spatial_halo(uv, self.max_iters)
+        growth = self.max_iters if max_growth is None else max_growth
+        return lambda uv: self._resolve_spatial_halo(uv, growth)
 
     def _solver_cfg(self):
         return (

@@ -14,7 +14,7 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.methods.ba import BAOpticalFlow, IRLSLevelConfig, _blended_solve, _preprocess_traced
+from optical_flow_tpu_torch.methods.ba import BAOpticalFlow, IRLSLevelConfig, _blended_solve, irls_pyramids
 from optical_flow_tpu_torch.ops.derivatives import precompute_warp, warp_deriv
 from optical_flow_tpu_torch.ops.occlusion import detect_occlusion
 from optical_flow_tpu_torch.ops.penalties import Robust
@@ -81,6 +81,15 @@ def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
     return uv
 
 
+def color_pyramids(plan: NLFlowPlan, color, batch_dims: int = 0):
+    """(the ``plan.spacing`` pyramid, the GNC pyramid) of the colour guide,
+    or lists of None without colour."""
+    if not plan.use_color:
+        return [None] * plan.levels, [None] * plan.gnc_levels
+    return (build_pyramid(color, plan.levels, plan.spacing, batch_dims),
+            build_pyramid(color, plan.gnc_levels, plan.gnc_spacing, batch_dims))
+
+
 def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool = False, checkpoint=None,
                             mesh=None, halo_of=None):
     """The whole GNC + coarse-to-fine Classic+NL flow; ``checkpoint(stage,
@@ -96,15 +105,8 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
     pyramids and the colour-guide pyramids are.
     """
     nb = images.ndim - 3  # leading batch axes: images are (..., H, W, 2C)
-    proc = _preprocess_traced(plan.preprocess, images, plan.alp, nb)
-    pyramid = build_pyramid(proc, plan.levels, plan.spacing, nb)
-    gnc_pyramid = build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, nb)
-    if plan.use_color:
-        color_pyr = build_pyramid(color, plan.levels, plan.spacing, nb)
-        color_gnc_pyr = build_pyramid(color, plan.gnc_levels, plan.gnc_spacing, nb)
-    else:
-        color_pyr = [None] * plan.levels
-        color_gnc_pyr = [None] * plan.gnc_levels
+    pyramid, gnc_pyramid = irls_pyramids(plan.preprocess, plan.alp, plan, images, nb)
+    color_pyr, color_gnc_pyr = color_pyramids(plan, color, nb)
 
     for stage_idx, (cfg, alpha) in enumerate(plan.stages):
         if display:

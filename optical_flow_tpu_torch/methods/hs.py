@@ -11,6 +11,10 @@ the JAX package's ``while_loop``: an item whose update fell below the stop
 keeps its flow, and its later systems get a zero right-hand side, so the
 solver stops it at iteration 0.  The host reads one flag a warp iteration,
 whether any item still runs.
+
+With a mesh (``estimate_flow(mesh=)``) each level that tiles runs on the
+row shards (``parallel/spatial.py::hs_level_step_spatial``), its warp halo
+sized from the incoming flow and ``max_warping_iters``.
 """
 from __future__ import annotations
 
@@ -26,6 +30,7 @@ from optical_flow_tpu_torch.ops.pyramid import auto_pyramid_levels, build_pyrami
 from optical_flow_tpu_torch.ops.resample import resample_flow
 from optical_flow_tpu_torch.ops.rof import structure_texture_decomposition_rof
 from optical_flow_tpu_torch.ops.stencil import build_hs_system
+from optical_flow_tpu_torch.parallel.spatial import hs_level_step_spatial
 from optical_flow_tpu_torch.solvers.cg import solve_flow_system
 from optical_flow_tpu_torch.utils.compat import scale_image
 from optical_flow_tpu_torch.utils.guard import guard_level
@@ -91,25 +96,33 @@ class HSFlowPlan:
     final_median: Optional[Tuple[int, int]]
 
 
-def hs_flow_program(plan: HSFlowPlan, images, uv, display: bool = False, checkpoint=None):
+def hs_pyramid(plan: HSFlowPlan, images, batch_dims: int = 0):
+    """The level pyramid, finest first, of the ROF texture or the [0, 255] rescale of ``images``."""
+    if plan.texture:
+        images = structure_texture_decomposition_rof(images, batch_dims=batch_dims)
+    else:
+        images = scale_image(images, 0, 255, batch_dims=batch_dims)
+    return build_pyramid(images, plan.levels, plan.spacing, batch_dims)
+
+
+def hs_flow_program(plan: HSFlowPlan, images, uv, display: bool = False, checkpoint=None, mesh=None, halo_of=None):
     """The whole coarse-to-fine HS flow, then the final median pass;
-    ``checkpoint(0, level, uv)`` after every level, if given.
+    ``checkpoint(0, level, uv)`` after every level, if given.  With a
+    ``mesh`` each level runs row-sharded with the warp halo ``halo_of(uv)``.
 
     ``images`` (..., H, W, 2C) and ``uv`` (..., H, W, 2) may carry a leading
     batch axis: one program for B pairs of one shape, each item normalised,
     stopped and guarded on its own.
     """
-    nb = images.ndim - 3  # leading batch axes
-    if plan.texture:
-        images = structure_texture_decomposition_rof(images, batch_dims=nb)
-    else:
-        images = scale_image(images, 0, 255, batch_dims=nb)
-    pyramid = build_pyramid(images, plan.levels, plan.spacing, nb)
+    pyramid = hs_pyramid(plan, images, images.ndim - 3)
     for level in range(plan.levels - 1, -1, -1):
         if display:
             print(f"Pyramid level: {level + 1}")
         uv = resample_flow(uv, plan.shapes[level])
-        uv = hs_level_step(plan.cfg, pyramid[level], uv)
+        if mesh is None:
+            uv = hs_level_step(plan.cfg, pyramid[level], uv)
+        else:
+            uv = hs_level_step_spatial(plan.cfg, pyramid[level], uv, mesh, halo_of(uv))
         if checkpoint is not None:
             checkpoint(0, level, uv)
     if plan.final_median is not None:
@@ -119,6 +132,8 @@ def hs_flow_program(plan: HSFlowPlan, images, uv, display: bool = False, checkpo
 
 class HSOpticalFlow(BaseOpticalFlow):
     """Horn–Schunck with quadratic penalty and Laplacian spatial term."""
+
+    spatial_mesh_supported = True  # hs_level_step_spatial (parallel/spatial.py)
 
     def __init__(self):
         super().__init__()
@@ -167,8 +182,8 @@ class HSOpticalFlow(BaseOpticalFlow):
 
     def compute_flow(self, images, color=None):
         """Flow (H, W, 2) from the (H, W, 2) gray pair; HS has no colour guide."""
-        if self.spatial_mesh is not None:
-            raise NotImplementedError("Horn-Schunck with a mesh: its sharded level is ROADMAP item 14b")
         sz = tuple(int(s) for s in images.shape[:2])
         uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
-        return hs_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint)
+        # HS's halo grows with its own warp iterations, not max_iters
+        return hs_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint,
+                               mesh=self.spatial_mesh, halo_of=self._spatial_halo_of(self.max_warping_iters))

@@ -264,28 +264,31 @@ def _iteration_buffer(dev, B: int):
 def launch(planes, rtol: float, maxiter: int, plan: CgPlan):
     """Launch the kernel of ``plan`` on nine contiguous float32 (..., H, W) CUDA
     planes; returns the (..., H, W, 2) solution.  :func:`cg_solve` is the
-    entry point; ``chip_smoke.py`` calls this to time one path against another."""
+    entry point; ``chip_smoke.py`` calls this to time one path against another.
+    The launch runs with the planes' card current: the library launches on
+    the current device."""
     H, W = planes[0].shape[-2:]
     B = planes[0].numel() // max(H * W, 1)
     dev = planes[0].device
     lib = load_library()
     x = torch.empty((*planes[0].shape, 2), dtype=torch.float32, device=dev)
     iters = _iteration_buffer(dev, B)
-    if plan.path == "streaming":
-        work = torch.empty((11, H, W), dtype=torch.float32, device=dev)
-        partials = torch.empty(4 * _MAX_BLOCKS, dtype=torch.float64, device=dev)
-        err = lib.cg_solve_f32(
-            *[p.data_ptr() for p in planes], x.data_ptr(), work.data_ptr(), partials.data_ptr(),
-            iters.data_ptr(), B, H, W, float(rtol) ** 2, int(maxiter), current_stream(dev),
+    with torch.cuda.device(dev):
+        if plan.path == "streaming":
+            work = torch.empty((11, H, W), dtype=torch.float32, device=dev)
+            partials = torch.empty(4 * _MAX_BLOCKS, dtype=torch.float64, device=dev)
+            err = lib.cg_solve_f32(
+                *[p.data_ptr() for p in planes], x.data_ptr(), work.data_ptr(), partials.data_ptr(),
+                iters.data_ptr(), B, H, W, float(rtol) ** 2, int(maxiter), current_stream(dev),
+            )
+            check(err, "cg_solve_f32")
+            return x
+        zhalo = torch.empty((min(plan.items, B) * plan.blocks, 4, W), dtype=torch.float32, device=dev)
+        partials = torch.empty(4 * RES_MAX_BLOCKS, dtype=torch.float64, device=dev)
+        err = lib.cg_resident_f32(
+            *[p.data_ptr() for p in planes], x.data_ptr(), zhalo.data_ptr(), partials.data_ptr(),
+            iters.data_ptr(), B, H, W, float(rtol) ** 2, int(maxiter), plan.blocks, min(plan.items, B), plan.ppt,
+            plan.smem, current_stream(dev),
         )
-        check(err, "cg_solve_f32")
-        return x
-    zhalo = torch.empty((min(plan.items, B) * plan.blocks, 4, W), dtype=torch.float32, device=dev)
-    partials = torch.empty(4 * RES_MAX_BLOCKS, dtype=torch.float64, device=dev)
-    err = lib.cg_resident_f32(
-        *[p.data_ptr() for p in planes], x.data_ptr(), zhalo.data_ptr(), partials.data_ptr(),
-        iters.data_ptr(), B, H, W, float(rtol) ** 2, int(maxiter), plan.blocks, min(plan.items, B), plan.ppt,
-        plan.smem, current_stream(dev),
-    )
     check(err, "cg_resident_f32")
     return x

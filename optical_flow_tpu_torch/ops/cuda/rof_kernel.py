@@ -112,19 +112,21 @@ def rof_structure(im, theta: float = 1.0 / 8, n_iters: int = 100):
 def launch(x, theta: float, n_iters: int, plan: RofPlan):
     """Launch the kernel(s) of ``plan`` on a contiguous float32 (B, H, W) CUDA
     tensor.  :func:`rof_structure` is the entry point; ``chip_smoke.py`` calls
-    this to time one path against another."""
+    this to time one path against another.  The launch runs with ``x``'s
+    card current: the library launches on the current device."""
     B, H, W = x.shape
     lib = load_library()
     out = torch.empty_like(x)
     stream = current_stream(x.device)
-    if plan.path == "streaming":
-        p = torch.zeros((4, B, H, W), dtype=torch.float32, device=x.device)
-        err = lib.rof_structure_f32(x.data_ptr(), p.data_ptr(), out.data_ptr(), B, H, W,
-                                    float(theta), int(n_iters), stream)
-        check(err, "rof_structure_f32")
-        return out
-    halo = torch.empty((2, B * plan.per_image, 3, W), dtype=torch.float32, device=x.device)
-    err = lib.rof_resident_f32(x.data_ptr(), halo.data_ptr(), out.data_ptr(), B, H, W,
-                               float(theta), int(n_iters), plan.per_image, plan.smem, stream)
+    with torch.cuda.device(x.device):
+        if plan.path == "streaming":
+            p = torch.zeros((4, B, H, W), dtype=torch.float32, device=x.device)
+            err = lib.rof_structure_f32(x.data_ptr(), p.data_ptr(), out.data_ptr(), B, H, W,
+                                        float(theta), int(n_iters), stream)
+            check(err, "rof_structure_f32")
+            return out
+        halo = torch.empty((2, B * plan.per_image, 3, W), dtype=torch.float32, device=x.device)
+        err = lib.rof_resident_f32(x.data_ptr(), halo.data_ptr(), out.data_ptr(), B, H, W,
+                                   float(theta), int(n_iters), plan.per_image, plan.smem, stream)
     check(err, "rof_resident_f32")
     return out

@@ -5,14 +5,15 @@ halo exchange per operator apply and inner products summed over the
 shards (:func:`~optical_flow_tpu_torch.parallel.mesh.psum`).  The
 recurrence is the classic block-Jacobi PCG of the plain twin
 (``ops/cuda/cg_kernel.py::pcg_solve_split``) from x0 = 0, with the global
-``||r||^2`` read on the host once an iteration, as the twin reads it.  The
+``||r||^2`` read on the host once an iteration, as the twin reads it; its
+inner products sum in float64, as the kernel's do.  The
 JAX package's sharded PCG is XLA code too, so this is plain PyTorch: each
 shard's work is a few launches on its own device.
 
 Functions suffixed ``_local`` take sharded fields (lists of row blocks,
 one a shard, in shard order); :func:`solve_flow_system_sharded` is the
 host-callable wrapper.  The Chronopoulos–Gear and Chebyshev recurrences
-(``algo="gear"`` / ``"cheby"``) are ROADMAP item 14b.
+(``algo="gear"`` / ``"cheby"``) are ROADMAP item 14c.
 """
 from __future__ import annotations
 
@@ -32,7 +33,7 @@ def _check_algo(algo) -> None:
     if algo in (None, "classic"):
         return
     if algo in ("gear", "cheby"):
-        raise NotImplementedError(f"distributed PCG algo={algo!r}: the gear and cheby recurrences are ROADMAP item 14b")
+        raise NotImplementedError(f"distributed PCG algo={algo!r}: the gear and cheby recurrences are ROADMAP item 14c")
     raise ValueError(f"unknown CG algo {algo!r}; expected 'classic', 'gear' or 'cheby'")
 
 
@@ -54,8 +55,16 @@ def sharded_laplacian_diag_local(w_h, w_v) -> list:
 
 
 def _dot2(au, av, bu, bv):
-    """sum(au bu) + sum(av bv) over every shard, on the first shard's device."""
-    return psum([torch.sum(a * b) + torch.sum(c * d) for a, b, c, d in zip(au, bu, av, bv)])
+    """sum(au bu) + sum(av bv) over every shard, on the first shard's device.
+
+    As the PCG kernel sums: the products and sums in float64 (a product of
+    two float32 values is exact there), the total rounded to the fields'
+    dtype, so that a float32 solve's scalars are the kernel's up to the
+    order of double sums.
+    """
+    parts = [torch.sum(a.double() * b.double()) + torch.sum(c.double() * d.double())
+             for a, b, c, d in zip(au, bu, av, bv)]
+    return psum(parts).to(au[0].dtype)
 
 
 def solve_flow_system_local(systems, rtol: float = 1e-3, maxiter: int = 200, algo=None) -> list:

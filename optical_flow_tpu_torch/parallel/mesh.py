@@ -1,14 +1,18 @@
-"""Device mesh for row-sharded flow estimation (port of ``optical_flow_tpu/parallel/mesh.py``).
+"""Device mesh for multi-device flow estimation (port of ``optical_flow_tpu/parallel/mesh.py``).
 
-A mesh is one process over an ordered list of devices: a (batch = 1,
-space = n) grid of ``torch.device``s.  Image rows are tiled over the
-``space`` axis: a sharded field is a list of n row blocks, block i on
-device i.  The same device may appear more than once (n shards on one
-card, or n shards on the CPU).  Nothing here uses ``torch.distributed``:
-the collectives are copies between the shards' devices, issued from the
-one process, in shard order, so that a run repeats bit for bit.
+A mesh is one process over a (batch, space) grid of ``torch.device``s,
+held row-major: batch row b is ``devices[b * space : (b + 1) * space]``.
 
-The batch × space mesh and multi-process runs are ROADMAP item 14b.
+* ``space``: image rows are tiled over it.  A sharded field is a list of
+  ``space`` row blocks, block i on device i of the first batch row.
+* ``batch``: frame pairs are split over it (``parallel/batch.py``), one
+  contiguous group a batch row.
+
+The same device may appear more than once (n shards on one card, or n
+shards on the CPU).  Nothing here uses ``torch.distributed``: the
+collectives are copies between the shards' devices, issued from the one
+process, in shard order, so that a run repeats bit for bit.
+Multi-process runs are ROADMAP item 14c.
 """
 from __future__ import annotations
 
@@ -31,24 +35,30 @@ def canonical_device(d) -> torch.device:
 
 @dataclasses.dataclass(frozen=True)
 class FlowMesh:
-    """The shards' devices, in shard order (shard i holds the i-th row block)."""
+    """A (batch, space) grid of devices, row-major; shard i of a row-sharded
+    field lives on ``devices[i]`` (the first batch row)."""
 
     devices: tuple
+    batch: int = 1
 
     @property
     def shape(self) -> dict:
         """Axis sizes by name, as a JAX mesh's ``shape``."""
-        return {BATCH_AXIS: 1, SPACE_AXIS: len(self.devices)}
+        return {BATCH_AXIS: self.batch, SPACE_AXIS: len(self.devices) // self.batch}
+
+    def batch_row(self, b: int) -> tuple:
+        """The devices of batch row ``b``."""
+        space = self.shape[SPACE_AXIS]
+        return self.devices[b * space : (b + 1) * space]
 
 
 def flow_mesh(batch: int = 1, space: Optional[int] = None, devices: Optional[Sequence] = None) -> FlowMesh:
-    """A (batch = 1, space) mesh over ``devices`` (default: every visible CUDA device).
+    """A (batch, space) mesh over ``devices`` (default: every visible CUDA device).
 
-    ``space`` defaults to the number of devices and must equal it.  A device
-    may be listed more than once, e.g. ``devices=["cpu"] * 8``.
+    ``space`` defaults to the number of devices over ``batch``; ``batch *
+    space`` must equal it.  A device may be listed more than once, e.g.
+    ``devices=["cpu"] * 8``.
     """
-    if batch != 1:
-        raise NotImplementedError(f"flow_mesh(batch={batch}): the batch x space mesh is ROADMAP item 14b")
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("flow_mesh(): no CUDA device is visible; pass devices, e.g. ['cpu'] * n")
@@ -56,19 +66,23 @@ def flow_mesh(batch: int = 1, space: Optional[int] = None, devices: Optional[Seq
     devices = tuple(canonical_device(d) for d in devices)
     n = len(devices)
     if space is None:
-        space = n
-    if space != n or n < 1:
-        raise ValueError(f"batch*space = {space} != {n} devices")
-    return FlowMesh(devices)
+        if batch < 1 or n % batch:
+            raise ValueError(f"{n} devices not divisible by batch={batch}")
+        space = n // batch
+    if batch * space != n or n < 1:
+        raise ValueError(f"batch*space = {batch * space} != {n} devices")
+    return FlowMesh(devices, int(batch))
 
 
 def shard_rows(x, mesh: FlowMesh) -> list:
-    """The n row blocks of ``x`` (H, ...), block i on the mesh's device i; H must divide n."""
-    n = len(mesh.devices)
+    """The n row blocks of ``x`` (H, ...), block i on device i of the mesh's
+    first batch row; H must divide n."""
+    row = mesh.batch_row(0)
+    n = len(row)
     if x.shape[0] % n:
         raise ValueError(f"shard_rows: {x.shape[0]} rows do not divide over {n} shards")
     Hs = x.shape[0] // n
-    return [x[i * Hs : (i + 1) * Hs].to(d) for i, d in enumerate(mesh.devices)]
+    return [x[i * Hs : (i + 1) * Hs].to(d) for i, d in enumerate(row)]
 
 
 def gather_rows(shards, device) -> torch.Tensor:

@@ -1,7 +1,7 @@
-"""Row-sharded pyramid levels for the Classic+NL and BA families (port of ``optical_flow_tpu/parallel/spatial.py``).
+"""Row-sharded pyramid levels of every method family (port of ``optical_flow_tpu/parallel/spatial.py``).
 
 Image rows are tiled over the mesh's ``space`` axis and a whole level —
-warp and derivatives, the two IRLS systems, the distributed PCG, occlusion
+warp and derivatives, the linear systems, the distributed PCG, occlusion
 and the (weighted) median — runs on the row blocks, exchanging only halo
 strips and PCG inner products (``parallel/halo.py``, ``parallel/dist.py``).
 A sharded field is a list of (Hs, ...) row blocks, one a shard, in shard
@@ -10,6 +10,12 @@ order, each on its shard's device.
 * :func:`classic_nl_level_local` — the Classic+NL level; with
   ``use_color=False`` it is also the BA level (the same α-blended solve and
   duv-trick median, no occlusion term).
+* :func:`alt_ba_level_local` — the alt-BA level: the BA system plus the
+  coupling to the auxiliary field (masked to the true rows) and the
+  Li–Osher update through the sharded median.
+* :func:`hs_level_local` — the Horn–Schunck level, whose early stop tests
+  the update's norm over all the shards, read on the host once a warp
+  iteration, so that every shard stops at the same iteration.
 * The weighted median runs on each shard's halo-padded planes through the
   kernel's wrapper (``ops/cuda/wmedian_kernel.py::wmedian``): one launch
   for all the shards of a device, the shards as its batch axis.
@@ -31,8 +37,6 @@ to the ``halo`` rows; the methods size the halo a level from the incoming
 flow (``methods/base.py::_resolve_spatial_halo``).  Levels too short for
 their halo (:func:`spatial_plan` returns None) run the single-device step:
 coarse levels unsharded, fine levels sharded, as in the JAX package.
-
-The Horn–Schunck and alt-BA levels are ROADMAP item 14b.
 """
 from __future__ import annotations
 
@@ -47,11 +51,11 @@ from optical_flow_tpu_torch.ops.cuda import wmedian_kernel
 from optical_flow_tpu_torch.ops.derivatives import HERMITE_CORNER_SHIFTS, hermite_eval
 from optical_flow_tpu_torch.ops.filters import correlate2d, correlate_padded, median_of_windows, pad_axis
 from optical_flow_tpu_torch.ops.interp import _bspline3, gather_points, spline_coeffs_2d, tap_index
-from optical_flow_tpu_torch.ops.stencil import FlowSystem, blend_systems
+from optical_flow_tpu_torch.ops.stencil import FlowSystem, add_coupling, blend_systems
 from optical_flow_tpu_torch.parallel.dist import sharded_laplacian_apply_local, solve_flow_system_local
 from optical_flow_tpu_torch.parallel.halo import halo_exchange_rows
-from optical_flow_tpu_torch.parallel.mesh import SPACE_AXIS, gather_rows, shard_rows
-from optical_flow_tpu_torch.utils.guard import guard_level
+from optical_flow_tpu_torch.parallel.mesh import SPACE_AXIS, gather_rows, psum, shard_rows
+from optical_flow_tpu_torch.utils.guard import guard_level, guard_level_pair
 
 SUPPORTED_INTERP = ("bi-cubic", "bi-linear", "cubic")
 SUPPORTED_SOLVERS = ("pcg", "backslash")
@@ -84,8 +88,6 @@ class SpatialConfig:
     halo: int  # warp-gather halo radius (largest exact displacement)
     H_true: int  # true row count
     W: int
-    # the batch x space mesh's axes of independent solves (ROADMAP item 14b)
-    sync_axes: tuple = ()
 
 
 def spatial_plan(H, W, n, boundary_radius, halo, axis_name=SPACE_AXIS, warp_margin: int = 0):
@@ -339,11 +341,11 @@ def _global_spline_tables(images, deriv_filter, scfg: SpatialConfig):
 # ---------------------------------------------------------------------------
 
 
-def _solver_params(irls):
-    """(rtol, maxiter) of the level's solver ('pcg' or 'backslash')."""
-    if irls.solver[0] == "pcg":
-        return irls.solver[1], irls.solver[2]
-    return irls.solver[3], irls.solver[4]
+def _solver_params(solver):
+    """(rtol, maxiter) of a level's solver tuple ('pcg' or 'backslash')."""
+    if solver[0] == "pcg":
+        return solver[1], solver[2]
+    return solver[3], solver[4]
 
 
 def _make_sys_builder(scfg: SpatialConfig, valid, vmask, dtype):
@@ -429,7 +431,7 @@ def classic_nl_level_local(cfg, scfg: SpatialConfig, images, color, uv, alpha, s
     valid = [g < H_true for g in m.g_col]  # (Hs, 1): the true rows
     vmask = [g < H_true - 1 for g in m.g_col]  # the rows owning a live vertical edge
     build_sys_local = _make_sys_builder(scfg, valid, vmask, dtype)
-    rtol, maxiter = _solver_params(irls)
+    rtol, maxiter = _solver_params(irls.solver)
 
     def blended_solve_local(uv, duv, derivs):
         sys_q = build_sys_local(uv, duv, derivs, irls.qua_rho_spatial_u, irls.qua_rho_spatial_v,
@@ -504,6 +506,122 @@ def classic_nl_level_local(cfg, scfg: SpatialConfig, images, color, uv, alpha, s
     return uv
 
 
+def alt_ba_level_local(cfg, scfg: SpatialConfig, images, uv, uvhat, alpha, replacement: bool,
+                       spline_tables=()) -> tuple:
+    """One alt-BA pyramid level on the shards; returns the sharded (uv, uvhat).
+
+    Mirrors ``alt_ba_level_step``: the α-blended BA system of
+    :func:`classic_nl_level_local` plus the per-pixel coupling
+    ``lambda2 rho'(uv - uvhat)`` on the diagonal and its right-hand side,
+    masked to the true rows so that the pad rows of every PCG iterate stay
+    exactly zero, then the Li–Osher update of ``uvhat`` through the sharded
+    median (``iters_lo`` passes, each re-synthesising the pad).
+    """
+    from optical_flow_tpu_torch.methods.alt_ba import _annealing
+
+    irls = cfg.irls
+    dtype = uv[0].dtype
+    m = _warp_setup(scfg, images, irls.interp, np.asarray(irls.deriv_filter), irls.blend, spline_tables, dtype)
+    valid = [g < scfg.H_true for g in m.g_col]
+    vmask = [g < scfg.H_true - 1 for g in m.g_col]
+    build_sys_local = _make_sys_builder(scfg, valid, vmask, dtype)
+    rtol, maxiter = _solver_params(irls.solver)
+    mfsz = irls.median_filter_size
+
+    def denoise_lo_local(un, lam_lo):
+        """``ops/denoise.py::denoise_LO`` on the shards: u <- medfilt(u + lam (un - u))."""
+        if mfsz is None:
+            return un
+        u = un
+        for _ in range(cfg.iters_lo):
+            u = _median_filter_local(scfg, [a + lam_lo * (b - a) for a, b in zip(u, un)], *mfsz)
+        return u
+
+    for lambda2, lam_lo in _annealing(cfg, dtype):
+        derivs = m.warp_deriv(uv)
+        duv = [torch.zeros_like(x) for x in uv]
+        for _j in range(irls.max_linear):
+            sys_q = build_sys_local(uv, duv, derivs, irls.qua_rho_spatial_u, irls.qua_rho_spatial_v,
+                                    irls.qua_rho_data, irls.lambda_q)
+            sys_r = build_sys_local(uv, duv, derivs, irls.rho_spatial_u, irls.rho_spatial_v, irls.rho_data,
+                                    irls.lambda_)
+            systems = []
+            for k, (q, r) in enumerate(zip(sys_q, sys_r)):
+                tmp = cfg.rho_couple.deriv_over_x(uv[k] - uvhat[k])
+                tmp = torch.where(valid[k][:, :, None], tmp, torch.zeros((), dtype=dtype, device=tmp.device))
+                sys = add_coupling(blend_systems(alpha, q, r), lambda2 * tmp)
+                delta = lambda2 * tmp * (uvhat[k] - uv[k])
+                systems.append(sys._replace(b_u=sys.b_u + delta[:, :, 0], b_v=sys.b_v + delta[:, :, 1]))
+            duv = solve_flow_system_local(systems, rtol, maxiter)
+            if irls.limit_update:
+                duv = [torch.clamp(x, -1.0, 1.0) for x in duv]
+        uv = [u + d for u, d in zip(uv, duv)]
+        uvhat = denoise_lo_local(uv, lam_lo)
+        if replacement:
+            uv = uvhat
+    return uv, uvhat
+
+
+def hs_level_local(cfg, scfg: SpatialConfig, images, uv, spline_tables=()) -> list:
+    """One Horn–Schunck pyramid level on the shards; returns the sharded flow.
+
+    Mirrors ``hs_level_step``: the HS system with unit edge weights (the
+    Neumann graph Laplacian, the pad rows decoupled), the distributed PCG,
+    and the early stop: once ``sqrt(sum over the shards of sum(x^2))`` falls
+    below ``STOP_NORM`` the update is discarded and the level ends.  The
+    norm is summed in shard order on the first shard's device and read on
+    the host once a warp iteration, as the unsharded level reads its flag,
+    so every shard takes the same number of warp iterations.
+    """
+    from optical_flow_tpu_torch.methods.hs import STOP_NORM
+
+    Hs, W, H_true = scfg.Hs, scfg.W, scfg.H_true
+    dtype = uv[0].dtype
+    m = _warp_setup(scfg, images, cfg.interp, np.asarray(cfg.deriv_filter), cfg.blend, spline_tables, dtype)
+    valid = [g < H_true for g in m.g_col]
+    vmask = [g < H_true - 1 for g in m.g_col]
+    rtol, maxiter = _solver_params(cfg.solver)
+
+    def cmean(x):
+        return torch.mean(x, dim=2) if x.ndim == 3 else x
+
+    # unit edge weights (the Neumann graph Laplacian), the pad rows decoupled
+    w_edge = cfg.lambda_ / cfg.sigmaS2
+    wh, wv = [], []
+    for v, vm in zip(valid, vmask):
+        edge = torch.full((Hs, W), w_edge, dtype=dtype, device=v.device)
+        zero = torch.zeros((), dtype=dtype, device=v.device)
+        wh.append(torch.where(v, F.pad(edge[:, :-1], (0, 1)), zero))
+        wv.append(torch.where(vm, edge, zero))
+
+    def build_sys(uv, derivs):
+        lap_u = sharded_laplacian_apply_local(wh, wv, [x[:, :, 0] for x in uv])
+        lap_v = sharded_laplacian_apply_local(wh, wv, [x[:, :, 1] for x in uv])
+        systems = []
+        for k, (It, Ix, Iy) in enumerate(derivs):
+            zero = torch.zeros((), dtype=dtype, device=It.device)
+            a11 = torch.where(valid[k], cmean(Ix**2) / cfg.sigmaD2, zero)
+            a12 = torch.where(valid[k], cmean(Ix * Iy) / cfg.sigmaD2, zero)
+            a22 = torch.where(valid[k], cmean(Iy**2) / cfg.sigmaD2, zero)
+            b_u = torch.where(valid[k], -lap_u[k] - cmean(It * Ix) / cfg.sigmaD2, zero)
+            b_v = torch.where(valid[k], -lap_v[k] - cmean(It * Iy) / cfg.sigmaD2, zero)
+            systems.append(FlowSystem(a11, a12, a22, wh[k], wv[k], wh[k], wv[k], b_u, b_v))
+        return systems
+
+    for _ in range(cfg.max_warping_iters):
+        x = solve_flow_system_local(build_sys(uv, m.warp_deriv(uv)), rtol, maxiter)
+        # the pad rows' update is exactly 0; a NaN norm stops the level, as `norm >= 1e-3` in JAX
+        if not bool(torch.sqrt(psum([torch.sum(a * a) for a in x])) >= STOP_NORM):
+            break
+        if cfg.limit_update:
+            x = [torch.clamp(a, -1.0, 1.0) for a in x]
+        uv = [u + a for u, a in zip(uv, x)]
+        if cfg.median_filter_size is not None:
+            for _k in range(cfg.mf_iter):
+                uv = _median_filter_local(scfg, uv, *cfg.median_filter_size)
+    return uv
+
+
 # ---------------------------------------------------------------------------
 # host-callable level steps
 # ---------------------------------------------------------------------------
@@ -512,6 +630,26 @@ def classic_nl_level_local(cfg, scfg: SpatialConfig, images, color, uv, alpha, s
 def _pad_images(images, pad):
     """Bottom rows mirrored with the edge (scipy 'reflect'), as the filters read past the edge."""
     return pad_axis(images, 0, 0, pad, "reflect")
+
+
+def _level_plan(images, mesh, boundary_radius: int, halo: int, interp: str):
+    """The level's :class:`SpatialConfig` on ``mesh``'s space axis, or None
+    if the level is too short to tile."""
+    H, W = images.shape[:2]
+    margin = 2 if interp == "cubic" else 0
+    return spatial_plan(H, W, int(mesh.shape[SPACE_AXIS]), boundary_radius, halo, warp_margin=margin)
+
+
+def _shard_level(scfg: SpatialConfig, mesh, images, fields, interp: str, deriv_filter):
+    """The level's inputs on the shards: the images, each flow field of
+    ``fields`` (zero in the pad rows) and, for the 'cubic' warp, the B-spline
+    tables computed on the whole level's true rows before any padding."""
+    tables = _global_spline_tables(images, deriv_filter, scfg) if interp == "cubic" else ()
+    if scfg.pad:
+        images = _pad_images(images, scfg.pad)
+        fields = [F.pad(f, (0, 0, 0, 0, 0, scfg.pad)) for f in fields]
+    return (shard_rows(images, mesh), [shard_rows(f, mesh) for f in fields],
+            tuple(tuple(shard_rows(T, mesh) for T in tabs) for tabs in tables))
 
 
 def classic_nl_level_step_spatial(cfg, images, color, uv, alpha, mesh, halo: int = 6, fallback=None):
@@ -523,17 +661,15 @@ def classic_nl_level_step_spatial(cfg, images, color, uv, alpha, mesh, halo: int
     alone).  The guard runs on the whole level after the shards are
     gathered: a rollback a shard would splice healthy and rolled-back tiles.
     """
-    H, W = images.shape[:2]
+    H = images.shape[0]
     check_spatial_config(cfg.irls.interp, cfg.irls.solver[0])
-    n = int(mesh.shape[SPACE_AXIS])
     if cfg.use_color:
         boundary_radius = int(cfg.area_hsz)
     elif cfg.irls.median_filter_size is not None:
         boundary_radius = int(cfg.irls.median_filter_size[0]) // 2
     else:
         boundary_radius = 2
-    margin = 2 if cfg.irls.interp == "cubic" else 0
-    scfg = spatial_plan(H, W, n, boundary_radius, halo, warp_margin=margin)
+    scfg = _level_plan(images, mesh, boundary_radius, halo, cfg.irls.interp)
     if scfg is None:
         if fallback is not None:
             return fallback()
@@ -541,24 +677,14 @@ def classic_nl_level_step_spatial(cfg, images, color, uv, alpha, mesh, halo: int
 
         return classic_nl_level_step(cfg, images, color, uv, alpha)
 
-    tables = ()
-    if cfg.irls.interp == "cubic":
-        # the global prefilter on the true rows, before any padding
-        tables = _global_spline_tables(images, cfg.irls.deriv_filter, scfg)
-    uv_in = uv
-    if scfg.pad:
-        images = _pad_images(images, scfg.pad)
-        if cfg.use_color:
-            color = pad_axis(color, 0, 0, scfg.pad, "mirror")  # the median's numpy-reflect
-        uv = F.pad(uv, (0, 0, 0, 0, 0, scfg.pad))
-    out = classic_nl_level_local(
-        cfg, scfg, shard_rows(images, mesh), shard_rows(color, mesh) if cfg.use_color else None,
-        shard_rows(uv, mesh), alpha,
-        tuple(tuple(shard_rows(T, mesh) for T in tabs) for tabs in tables),
-    )
-    out = gather_rows(out, uv_in.device)[:H]
+    if cfg.use_color and scfg.pad:
+        color = pad_axis(color, 0, 0, scfg.pad, "mirror")  # the median's numpy-reflect
+    im_s, (uv_s,), tables = _shard_level(scfg, mesh, images, [uv], cfg.irls.interp, cfg.irls.deriv_filter)
+    out = classic_nl_level_local(cfg, scfg, im_s, shard_rows(color, mesh) if cfg.use_color else None, uv_s, alpha,
+                                 tables)
+    out = gather_rows(out, uv.device)[:H]
     if cfg.irls.guard:
-        out = guard_level(out, uv_in, cfg.irls.guard)
+        out = guard_level(out, uv, cfg.irls.guard)
     return out
 
 
@@ -576,3 +702,50 @@ def ba_level_step_spatial(cfg, images, uv, alpha, mesh, halo: int = 6):
     # alone; only the single-device step it falls back to is BA's own
     return classic_nl_level_step_spatial(ncfg, images, None, uv, alpha, mesh, halo,
                                          fallback=lambda: ba_level_step(cfg, images, uv, alpha))
+
+
+def alt_ba_level_step_spatial(cfg, images, uv, uvhat, alpha, replacement: bool, mesh, halo: int = 6):
+    """Row-sharded ``alt_ba_level_step`` (``cfg``: AltBALevelConfig); returns
+    (uv, uvhat) on ``uv``'s device.
+
+    Both coupled fields shard over rows, zero in the pad rows; levels too
+    small to tile run the single-device step.  The guard rolls the whole
+    (uv, uvhat) pair back after the shards are gathered.
+    """
+    from optical_flow_tpu_torch.methods.alt_ba import alt_ba_level_step
+
+    irls = cfg.irls
+    check_spatial_config(irls.interp, irls.solver[0])
+    mfsz = irls.median_filter_size
+    boundary_radius = max(int(mfsz[0]) // 2 if mfsz else 2, 2)
+    scfg = _level_plan(images, mesh, boundary_radius, halo, irls.interp)
+    if scfg is None:
+        return alt_ba_level_step(cfg, images, uv, uvhat, alpha, replacement)
+
+    H = images.shape[0]
+    im_s, (uv_s, uvhat_s), tables = _shard_level(scfg, mesh, images, [uv, uvhat], irls.interp, irls.deriv_filter)
+    out_uv, out_uvhat = alt_ba_level_local(cfg, scfg, im_s, uv_s, uvhat_s, alpha, replacement, tables)
+    out_uv, out_uvhat = gather_rows(out_uv, uv.device)[:H], gather_rows(out_uvhat, uv.device)[:H]
+    if irls.guard:
+        out_uv, out_uvhat = guard_level_pair(out_uv, out_uvhat, uv, uvhat, irls.guard)
+    return out_uv, out_uvhat
+
+
+def hs_level_step_spatial(cfg, images, uv, mesh, halo: int = 6):
+    """Row-sharded ``hs_level_step`` (``cfg``: HSLevelConfig); the flow returns
+    on ``uv``'s device.  Levels too small to tile run the single-device step;
+    the guard runs on the gathered level."""
+    from optical_flow_tpu_torch.methods.hs import hs_level_step
+
+    check_spatial_config(cfg.interp, cfg.solver[0])
+    boundary_radius = int(cfg.median_filter_size[0]) // 2 if cfg.median_filter_size else 2
+    scfg = _level_plan(images, mesh, boundary_radius, halo, cfg.interp)
+    if scfg is None:
+        return hs_level_step(cfg, images, uv)
+
+    H = images.shape[0]
+    im_s, (uv_s,), tables = _shard_level(scfg, mesh, images, [uv], cfg.interp, cfg.deriv_filter)
+    out = gather_rows(hs_level_local(cfg, scfg, im_s, uv_s, tables), uv.device)[:H]
+    if cfg.guard:
+        out = guard_level(out, uv, cfg.guard)
+    return out

@@ -15,10 +15,12 @@ import torch
 from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched
 
 
-def estimate_flow_video(frames, method: str = "classic+nl-fast", mesh=None, params=None, device="cuda"):
+def estimate_flow_video(frames, method: str = "classic+nl-fast", mesh=None, params=None, device=None):
     """Flow for every consecutive pair of a (T, H, W) grayscale sequence -> (T-1, H, W, 2).
 
-    Every method family runs, as one batch (:func:`estimate_flow_batched`).
+    Every method family runs, as one batch (:func:`estimate_flow_batched`);
+    a ``mesh`` splits the T-1 pairs over its batch rows.  ``device``:
+    ``"cuda"`` by default without a mesh, the mesh's first device with one.
     """
     frames = frames if torch.is_tensor(frames) else torch.as_tensor(np.array(frames))
     if frames.ndim != 3:

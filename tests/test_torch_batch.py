@@ -331,13 +331,14 @@ def test_cg_device_launches_follow_the_plan():
 
 
 def test_default_method_mesh_sor_and_device_raise():
-    """JAX's default method (hs-brightness) and SOR run batched; a ``mesh`` raises
-    naming ROADMAP item 14, and the default device is the card."""
+    """JAX's default method (hs-brightness) and SOR run batched; a ``mesh`` that is
+    no ``flow_mesh`` raises (``tests/test_torch_batch_mesh.py`` runs real
+    meshes), and the default device is the card."""
     from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched
 
     images = np.zeros((2, 16, 16, 2))
     assert estimate_flow_batched(images, device="cpu").shape == (2, 16, 16, 2)
-    with pytest.raises(NotImplementedError, match="item 14"):
+    with pytest.raises(TypeError, match="flow_mesh"):
         estimate_flow_batched(images, "classic+nl-fast", mesh=object(), device="cpu")
     uv = estimate_flow_batched(images, "classic+nl-fast", params={"solver": "sor"}, device="cpu")
     assert uv.shape == (2, 16, 16, 2)
