@@ -116,7 +116,16 @@ Phases, each printing its results; any failed check exits non-zero:
     batch row and device); ``estimate_flow_pipelined`` over those pairs,
     classic+nl-fast with pcg at ``n_stages=3`` (the stage partition, each
     flow bit-identical to its ``estimate_flow`` and in order, four frames'
-    launches, the time a pair over the stream beside a single frame).
+    launches, the time a pair over the stream beside a single frame);
+18. several processes: two ranks spawned on card 0 over gloo (tcp
+    localhost), each building nothing, classic+nl-fast over ``flow_mesh()``
+    (one shard a rank) under the ``classic``, ``gear`` and ``cheby`` PCG
+    recurrences (``classic`` bit-identical in every rank to phase 16's
+    one-process 2-shard frame; each in the gate; iterations, psum rounds an
+    iteration, halo exchanges and each rank's launches and host time), then
+    phase 12's pairs over ``flow_mesh(batch=2, space=1)``, one batch row a
+    rank (every item bit-identical to the unmeshed batch).  Any rank's
+    failure fails the phase.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -128,7 +137,7 @@ median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
 (streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
 of each path driven (counts set to 0 just before it), the paths of phases
-9-17 included.  A line before those holds phases 13, 15, 16 and 17's
+9-18 included (phase 18's summed over the ranks).  A line before those holds phases 13, 15, 16 and 17's
 latencies and phase 13's profile as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
@@ -205,6 +214,13 @@ MESH_BATCHES = [
     ("hs-brightness", PATH_PARAMS, {"wmedian": 0, "rof": 0}),
 ]
 PIPELINE_STAGES = 3
+# the multi-process phase: PROCESSES ranks on card 0 over gloo, one shard a
+# rank, classic+nl-fast under the three PCG recurrences, then the batch over
+# flow_mesh(batch=PROCESSES, space=1); a launch may take RANKS_TIMEOUT seconds
+PROCESSES = 2
+PROCESS_SHARDS = 2  # phase 16's shard count whose frame the ranks repeat
+CG_ALGOS = ("classic", "gear", "cheby")
+RANKS_TIMEOUT = 300.0
 SEED = 0
 # an H100 SXM's published peaks (float32 outside the tensor cores; HBM3)
 PEAK_F32_OPS, PEAK_BYTES = 67e12, 3.35e12
@@ -246,17 +262,22 @@ def cuda_ms(torch, fn, reps):
     return start.elapsed_time(end) / reps
 
 
+def float32_settings(torch):
+    """TF32 off and float32 matmuls at 'highest' precision, checked."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.set_float32_matmul_precision("highest")
+    check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
+    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+
+
 def phase_setup(torch):
     from optical_flow_tpu_torch.ops.cuda import build
 
     card = card_line()
     print(f"card: {card}")
     print(f"torch {torch.__version__}, CUDA {torch.version.cuda}, device 0: {torch.cuda.get_device_name(0)}")
-    torch.backends.cuda.matmul.allow_tf32 = False
-    torch.backends.cudnn.allow_tf32 = False
-    torch.set_float32_matmul_precision("highest")
-    check(torch.get_float32_matmul_precision() == "highest", "float32 matmul precision is not 'highest'")
-    check(not torch.backends.cuda.matmul.allow_tf32 and not torch.backends.cudnn.allow_tf32, "TF32 is on")
+    float32_settings(torch)
     t0 = time.time()
     build.load_library()
     print(f"kernel build + load: {time.time() - t0:.1f} s (key {build.build_key()})")
@@ -1038,14 +1059,15 @@ def level_runs(solves):
 
 def reset_counts():
     """Set every kernel's launch count (PCG's iteration and item totals, the
-    weighted median's items, the distributed PCG's solves and iterations) to 0."""
+    weighted median's items, the distributed PCG's solves, iterations and
+    collective rounds) to 0."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
     from optical_flow_tpu_torch.parallel import dist
 
     wmedian_kernel.launches = wmedian_kernel.items = 0
     rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_streaming = 0
     cg_kernel.reset_stats()
-    dist.solves = dist.iterations = 0
+    dist.reset_counts()
 
 
 def read_counts():
@@ -1908,7 +1930,8 @@ def phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv):
     weighted-median call against its twin (within the sums' rounding, as
     phase 4 holds the main path's input) and bit for bit against one launch
     a shard; classic+nl-fast's latency beside the unsharded frame's.
-    Returns each path's launches and latencies."""
+    Returns each path's launches and latencies, and the n = 2 classic+nl-fast
+    flow (phase 18's reference)."""
     from optical_flow_tpu_torch import estimate_flow, flow_angular_error
     from optical_flow_tpu_torch.ops.cuda import wmedian_kernel
     from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
@@ -1917,7 +1940,7 @@ def phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv):
 
     t_phase = time.perf_counter()
     launches, latency = {}, {}
-    unsharded = {}
+    unsharded, flows = {}, {}
     for name, params in (("classic+nl-fast", PARAMS), ("ba", PATH_PARAMS)):
         with solve_log(torch, dev) as log:
             uv = estimate_flow(rgb1, rgb2, name, params, device=dev)
@@ -1947,7 +1970,7 @@ def phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv):
         counts, by_path = read_counts()
         items, solves, iters = wmedian_kernel.items, dist.solves, dist.iterations
         launches[label] = counts
-        uv_np = uv.cpu().numpy()
+        uv_np = flows[label] = uv.cpu().numpy()
         check(uv_np.shape == (388, 584, 2) and uv.device == devices[0] and np.isfinite(uv_np).all(),
               f"{label}: unexpected flow {uv_np.shape} on {uv.device}")
         aae, _, aepe = flow_angular_error(tu, tv, uv_np[..., 0], uv_np[..., 1])
@@ -1998,7 +2021,7 @@ def phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv):
         else:
             check(counts["wmedian"] == 0, f"{label}: a weighted median ran")
     print(f"sharded: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
-    return launches, latency
+    return launches, latency, flows[f"sharded classic+nl-fast n={PROCESS_SHARDS}"]
 
 
 def _warps_line(log, unsharded_runs):
@@ -2094,17 +2117,18 @@ def phase_mesh_batches(torch, dev, card, pairs):
     """Phase 17b: ``estimate_flow_batched_rgb`` over ``flow_mesh(batch=2,
     space=1)`` on the batch phase's four pairs, ``MESH_BATCHES``: each item
     bit-identical to the same item of the unmeshed batch, the launches by
-    batch row and device (no plain twin)."""
+    batch row and device (no plain twin).  Returns the launches and the
+    unmeshed classic+nl-fast batch (phase 18's reference)."""
     from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
     from optical_flow_tpu_torch.parallel.mesh import flow_mesh
 
     im1, im2 = _batch_of(pairs)
     devices = shard_devices(torch, MESH_BATCH_ROWS)
     mesh = flow_mesh(batch=MESH_BATCH_ROWS, space=1, devices=devices)
-    launches = {}
+    launches, refs = {}, {}
     for name, params, expected in MESH_BATCHES:
         path = f"mesh batch {name}"
-        ref = estimate_flow_batched_rgb(im1, im2, name, params=params, device=dev)
+        ref = refs[name] = estimate_flow_batched_rgb(im1, im2, name, params=params, device=dev)
         estimate_flow_batched_rgb(im1, im2, name, mesh=mesh, params=params)  # warm-up
         torch.cuda.synchronize()
         reset_counts()
@@ -2131,7 +2155,7 @@ def phase_mesh_batches(torch, dev, card, pairs):
               and all(r[1] == len(pairs) // MESH_BATCH_ROWS for r in rows), f"{path}: batch rows {rows}")
         check(all(r[2]["wmedian"] == expected["wmedian"] and r[2]["rof"] == expected["rof"] for r in rows)
               and counts["cg"] == sum(r[2]["cg"] for r in rows) > 0, f"{path}: launches by row {rows}")
-    return launches
+    return launches, refs["classic+nl-fast"].cpu().numpy()
 
 
 def phase_pipeline(torch, dev, card, pairs, frame_ms):
@@ -2178,6 +2202,141 @@ def phase_pipeline(torch, dev, card, pairs, frame_ms):
     check(counts == {"wmedian": 21 * len(stream), "cg": 21 * len(stream), "rof": len(stream)},
           f"pipeline: launches {counts}")
     return counts, {"pipeline_pair_ms": pair_ms, "single_frame_ms": frame_ms}
+
+
+def _rank_counts():
+    """This rank's kernel launches, the weighted median's items and the
+    distributed PCG's solves, iterations and collective rounds since
+    :func:`reset_counts`."""
+    from optical_flow_tpu_torch.ops.cuda import wmedian_kernel
+    from optical_flow_tpu_torch.parallel import dist
+
+    counts, by_path = read_counts()
+    return {**counts, "cg resident": by_path["cg resident"], "wmedian items": wmedian_kernel.items,
+            "solves": dist.solves, "iterations": dist.iterations, "psum rounds": dist.psum_rounds,
+            "halo rounds": dist.halo_rounds}
+
+
+def phase18_rank(rank, world_size, address):
+    """One rank of phase 18, on card 0 over gloo: RubberWhale classic+nl-fast
+    over ``flow_mesh()`` (one shard a rank) under each PCG recurrence (the
+    classic frame after one warm-up frame), then phase 12's four pairs over
+    ``flow_mesh(batch=world_size, space=1)``.  Each path counted from 0 with no
+    plain twin; returns the flows, this rank's counts and host times."""
+    import torch
+
+    sys.path.insert(0, REPO)
+    from optical_flow_tpu_torch import estimate_flow
+    from optical_flow_tpu_torch.io.flo import read_flow_file
+    from optical_flow_tpu_torch.ops.cuda import build
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
+    from optical_flow_tpu_torch.parallel.mesh import flow_mesh, initialize_distributed
+    from optical_flow_tpu_torch.solvers import cg
+
+    t0 = time.perf_counter()
+    float32_settings(torch)
+    build.load_library()
+    out = {"built here": bool(build.build_log)}
+    initialize_distributed(address, world_size, rank, "gloo", device=torch.device("cuda", 0), timeout=RANKS_TIMEOUT)
+    mesh = flow_mesh()
+    out["layout"] = mesh.space_layout().index
+    out["setup s"] = time.perf_counter() - t0
+    rgb1, rgb2, _, _ = read_flow_file("RubberWhale", 10)
+    estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, mesh=mesh)  # warm-up
+    for algo in CG_ALGOS:
+        cg.CG_ALGO = algo
+        reset_counts()
+        with no_plain_twins():
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            uv = estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, mesh=mesh)
+            torch.cuda.synchronize()
+            host_s = time.perf_counter() - t0
+        out[algo] = {"uv": uv.cpu().numpy(), "device": str(uv.device), "counts": _rank_counts(), "host s": host_s}
+    cg.CG_ALGO = "classic"
+    im1, im2 = _batch_of([(seq, *read_flow_file(seq, 10)) for seq in BATCH_SEQS])
+    bmesh = flow_mesh(batch=world_size, space=1)
+    estimate_flow_batched_rgb(im1, im2, "classic+nl-fast", mesh=bmesh, params=PARAMS)  # warm-up
+    reset_counts()
+    with no_plain_twins():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        uv = estimate_flow_batched_rgb(im1, im2, "classic+nl-fast", mesh=bmesh, params=PARAMS)
+        torch.cuda.synchronize()
+        host_s = time.perf_counter() - t0
+    out["batch"] = {"uv": uv.cpu().numpy(), "counts": _rank_counts(), "host s": host_s}
+    return out
+
+
+def phase_multiprocess(torch, card, tu, tv, sharded_ref, batch_ref):
+    """Phase 18: ``PROCESSES`` ranks (``phase18_rank``) spawned on card 0 over
+    gloo with a localhost rendezvous, each building nothing.  classic+nl-fast
+    over ``flow_mesh()`` (one shard a rank): with ``classic`` bit-identical in
+    every rank to phase 16's one-process frame of ``PROCESS_SHARDS`` shards
+    (``sharded_ref``) and in the gate; ``gear`` and ``cheby`` in the gate,
+    their mean |d| from it, iterations and psum rounds an iteration; in every
+    rank the weighted median once a warp iteration on its shard, one ROF
+    call, PCG kernel launches only on unsharded levels.  Then phase 12's
+    pairs over ``flow_mesh(batch=PROCESSES, space=1)``, one batch row a rank:
+    every item bit-identical to the unmeshed batch (``batch_ref``), each rank
+    running its row's kernels.  Any rank's failure fails the phase.  Returns
+    the launches by path, summed over the ranks, and the host times."""
+    from optical_flow_tpu_torch import flow_angular_error
+    from optical_flow_tpu_torch.parallel.launch import RanksFailed, free_tcp_address, run_ranks
+
+    t_phase = time.perf_counter()
+    try:
+        ranks = run_ranks(phase18_rank, PROCESSES, (free_tcp_address(),), timeout=RANKS_TIMEOUT)
+    except RanksFailed as e:
+        raise CheckFailed(f"multi-process: {e}") from None
+    spawn_s = time.perf_counter() - t_phase
+    launches, host = {}, {}
+    check([r["layout"] for r in ranks] == [(k,) for k in range(PROCESSES)] and not any(r["built here"] for r in ranks),
+          f"multi-process: layouts {[r['layout'] for r in ranks]}, built in a rank: {[r['built here'] for r in ranks]}")
+    print(f"multi-process: {PROCESSES} ranks on card 0 over gloo (tcp localhost), one shard a rank, none built a "
+          f"kernel; rank setup {', '.join(f'{r['setup s']:.1f}' for r in ranks)} s  [{card}]")
+    classic = ranks[0]["classic"]["uv"]
+    for algo in CG_ALGOS:
+        path = f"multi-process classic+nl-fast {algo} {PROCESSES} ranks"
+        uvs = [r[algo]["uv"] for r in ranks]
+        counts = [r[algo]["counts"] for r in ranks]
+        aae, _, aepe = flow_angular_error(tu, tv, uvs[0][..., 0], uvs[0][..., 1])
+        same_ranks = all(np.array_equal(u, uvs[0]) for u in uvs)
+        d = np.abs(uvs[0] - classic)
+        c0 = counts[0]
+        per_it = c0["psum rounds"] / max(c0["iterations"], 1)
+        print(f"{path}: AAE {aae:.4f} deg, AEPE {aepe:.5f} px (gate {TARGET_AAE} / {TARGET_AEPE} within {GATE_AAE} / "
+              f"{GATE_AEPE}); every rank's flow the same: {same_ranks}; bit-identical to phase 16's one-process "
+              f"{PROCESS_SHARDS}-shard frame: {bool(np.array_equal(uvs[0], sharded_ref))}; against classic mean |d| "
+              f"{float(d.mean()):.3e} px, max |d| {float(d.max()):.3e} px; {c0['solves']} distributed solves, "
+              f"{c0['iterations']} iterations, {c0['psum rounds']} psum rounds ({per_it:.3f} an iteration), "
+              f"{c0['halo rounds']} halo exchanges; host time a frame by rank "
+              f"{', '.join(f'{r[algo]['host s']:.2f}' for r in ranks)} s  [{card}]")
+        print(f"{path}: launches by rank {[{k: c[k] for k in ('wmedian', 'wmedian items', 'cg', 'rof')} for c in counts]}")
+        check(all(r[algo]["device"] == "cuda:0" for r in ranks) and same_ranks and np.isfinite(uvs[0]).all(),
+              f"{path}: the ranks' flows differ or are not finite")
+        check(abs(aae - TARGET_AAE) <= GATE_AAE and abs(aepe - TARGET_AEPE) <= GATE_AEPE, f"{path}: outside the gate")
+        check(all(c["solves"] == 21 and c["wmedian"] == 21 and c["wmedian items"] == 21 and c["rof"] == 1
+                  and c["cg"] == 0 and all(c[k] == c0[k] for k in ("iterations", "psum rounds", "halo rounds"))
+                  for c in counts), f"{path}: counts by rank {counts}")
+        if algo == "classic":
+            check(np.array_equal(uvs[0], sharded_ref), f"{path}: differs from the one-process sharded frame")
+        launches[path] = {k: sum(c[k] for c in counts) for k in ("wmedian", "cg", "rof")}
+        host[algo] = [r[algo]["host s"] for r in ranks]
+    path = f"multi-process batch classic+nl-fast {PROCESSES} ranks"
+    counts = [r["batch"]["counts"] for r in ranks]
+    same = [[bool(np.array_equal(r["batch"]["uv"][k], batch_ref[k])) for k in range(len(batch_ref))] for r in ranks]
+    print(f"{path}: flow_mesh(batch={PROCESSES}, space=1), one row of {len(batch_ref) // PROCESSES} pairs a rank: "
+          f"each item bit-identical to the unmeshed batch, by rank {same}; host time by rank "
+          f"{', '.join(f'{r['batch']['host s'] * 1e3:.2f}' for r in ranks)} ms; launches by rank "
+          f"{[{k: c[k] for k in ('wmedian', 'cg', 'cg resident', 'rof')} for c in counts]}  [{card}]")
+    check(all(all(row) for row in same), f"{path}: an item differs from the unmeshed batch")
+    check(all(c["wmedian"] == 21 and c["rof"] == 1 and c["cg"] > 0 for c in counts), f"{path}: counts {counts}")
+    launches[path] = {k: sum(c[k] for c in counts) for k in ("wmedian", "cg", "rof")}
+    host["batch"] = [r["batch"]["host s"] for r in ranks]
+    print(f"multi-process: phase wall time {time.perf_counter() - t_phase:.1f} s, spawn to results {spawn_s:.1f} s "
+          f"(host clock)")
+    return launches, host
 
 
 def main():
@@ -2240,15 +2399,18 @@ def main():
             torch, dev, card, pairs, launches_by_path["batch"]["cg"])
         family_launches, family_latency = phase_batch_families(torch, dev, card, pairs)
         launches_by_path.update(family_launches)
-        sharded_launches, sharded_latency = phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv)
+        sharded_launches, sharded_latency, sharded_ref = phase_sharded(torch, dev, card, rgb1, rgb2, tu, tv)
         launches_by_path.update(sharded_launches)
         t_phase = time.perf_counter()
         family_launches, family_ms = phase_sharded_families(torch, dev, card, rgb1, rgb2, tu, tv)
         launches_by_path.update(family_launches)
-        launches_by_path.update(phase_mesh_batches(torch, dev, card, pairs))
+        mesh_launches, batch_ref = phase_mesh_batches(torch, dev, card, pairs)
+        launches_by_path.update(mesh_launches)
         launches_by_path["pipeline classic+nl-fast"], pipeline_ms = phase_pipeline(
             torch, dev, card, pairs, sharded_latency["unsharded"])
         print(f"multi-device: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
+        process_launches, process_host_s = phase_multiprocess(torch, card, tu, tv, sharded_ref, batch_ref)
+        launches_by_path.update(process_launches)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2268,7 +2430,8 @@ def main():
     ]
     print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof, "families": family_latency,
                                           "sharded": sharded_latency,
-                                          "multi_device": {"sharded_host_ms": family_ms, **pipeline_ms}}))
+                                          "multi_device": {"sharded_host_ms": family_ms, **pipeline_ms},
+                                          "multi_process_host_s": process_host_s}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -5,8 +5,9 @@ alt-BA families), every solver (``'pcg'``, ``'backslash'``, ``'sor'``) and
 the level-rollback guard (``guard_flow``), from RGB or gray frames to flow
 on NVIDIA H100s, through three CUDA kernels written by hand (weighted
 median, whole-PCG solve, ROF): single pairs, batches, video, streams, and
-in one process over several devices (a row-sharding ``mesh``, a batch x
-space mesh, a pipeline of level groups).  Module names mirror the JAX package so
+over several devices (a row-sharding ``mesh``, a batch x space mesh, in one
+process or across processes joined by ``torch.distributed``; a pipeline of
+level groups in one process).  Module names mirror the JAX package so
 every function has an obvious counterpart; the JAX package is the
 reference this one is tested against.  This package imports ``torch`` and
 ``numpy`` only — never JAX.

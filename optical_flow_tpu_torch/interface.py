@@ -29,9 +29,10 @@ def resolve_device(device, caller: str = "estimate_flow") -> torch.device:
 
 def _apply_mesh(ope, method: str, mesh, device) -> torch.device:
     """Check that ``ope`` can run row-sharded on ``mesh``, set the mesh on it,
-    and return the device of the whole-image work: the mesh's first device.
-    The rows shard over the space axis of the mesh's first batch row: the
-    JAX package replicates a single pair over the batch axis."""
+    and return the device of the whole-image work: the mesh's first device
+    (of this process, when the mesh spans processes).  The rows shard over
+    the space axis of the mesh's first batch row: the JAX package replicates
+    a single pair over the batch axis."""
     from optical_flow_tpu_torch.parallel.mesh import FlowMesh, canonical_device
     from optical_flow_tpu_torch.parallel.spatial import check_spatial_config
 
@@ -43,7 +44,7 @@ def _apply_mesh(ope, method: str, mesh, device) -> torch.device:
             "ba/classic-c/classic++, classic+nl, alt-ba/classic-c-a"
         )
     check_spatial_config(str(ope.interpolation_method), str(ope.solver))
-    first = mesh.devices[0]
+    first = mesh.home
     if device is not None and canonical_device(device) != first:
         raise ValueError(f"estimate_flow(device={device!r}) disagrees with the mesh's first device {first}")
     ope.spatial_mesh = mesh
@@ -63,11 +64,16 @@ def estimate_flow(im1, im2, method: str = "classic+nl-fast", params=None, device
             ``{"out_dtype": "float16"}``.
         device: ``"cuda"`` (the default without a mesh; raises without a GPU)
             or ``"cpu"``.  With a mesh it defaults to the mesh's first device
-            and must name it if given.
+            (this process's first, when the mesh spans processes) and must
+            name it if given.
         mesh: optional :func:`~optical_flow_tpu_torch.parallel.mesh.flow_mesh`:
             every pyramid level that tiles runs on its row shards (halo
             exchange and distributed PCG, ``parallel/spatial.py``), over
             the space axis of its first batch row; every family shards.
+            A mesh that spans processes (``initialize_distributed``) runs
+            the call in every process on the same input; each process
+            computes its own shards and gets the whole flow (and calls a
+            checkpointer with every gathered level).
             ``params["spatial_halo"]`` fixes the warp halo; ``"auto"``
             sizes it a level from the incoming flow.  SOR, an unknown
             interpolation or a method class without a sharded level raises

@@ -21,7 +21,10 @@ pairs split into b contiguous groups, one a batch row, as the JAX package
 shards the batch axis alone (``P(BATCH_AXIS)``, the space axis
 replicated): each group runs as one batched program on its row's first
 device, and the flows are gathered in order on the mesh's first device.
-Each item computes the same function as without the mesh.  ``fuse`` (TPU
+Across processes each process runs the rows whose first device is its own
+and the flows are all-gathered in order onto every process, as in the JAX
+package's multi-process data-parallel run.  Each item computes the same
+function as without the mesh.  ``fuse`` (TPU
 compile plumbing in the JAX package) is accepted and ignored.
 """
 from __future__ import annotations
@@ -49,20 +52,31 @@ def _batched_method(method: str, params):
 
 
 def _batch_groups(mesh, B: int, device, caller: str):
-    """[(device, item slice)] of the mesh's batch rows, one contiguous group
-    of the B items a row; B must divide over them, as JAX's ``device_put``
-    requires.  ``device``, if given, must be the mesh's first device."""
-    from optical_flow_tpu_torch.parallel.mesh import BATCH_AXIS, FlowMesh, canonical_device
+    """[(device, item slice, mesh entry)] of the mesh's batch rows: each row's
+    first device and entry, and one contiguous group of the B items a row;
+    B must divide over them, as JAX's ``device_put`` requires.  ``device``,
+    if given, must be the mesh's first device (of this process)."""
+    from optical_flow_tpu_torch.parallel.mesh import BATCH_AXIS, SPACE_AXIS, FlowMesh, canonical_device
 
     if not isinstance(mesh, FlowMesh):
         raise TypeError(f"{caller}(mesh=...): expected a parallel.mesh.flow_mesh(...), got {type(mesh).__name__}")
     rows = mesh.shape[BATCH_AXIS]
     if B % rows:
         raise ValueError(f"{caller}: a batch of {B} pairs does not divide over the mesh's {rows} batch rows")
-    if device is not None and canonical_device(device) != mesh.devices[0]:
-        raise ValueError(f"{caller}(device={device!r}) disagrees with the mesh's first device {mesh.devices[0]}")
-    per = B // rows
-    return [(mesh.batch_row(g)[0], slice(g * per, (g + 1) * per)) for g in range(rows)]
+    if device is not None and canonical_device(device) != mesh.home:
+        raise ValueError(f"{caller}(device={device!r}) disagrees with the mesh's first device {mesh.home}")
+    per, space = B // rows, mesh.shape[SPACE_AXIS]
+    return [(mesh.batch_row(g)[0], slice(g * per, (g + 1) * per), g * space) for g in range(rows)]
+
+
+def _gather_batch_rows(flows, mesh, groups, like):
+    """The flows of every batch row, in order, on every process: ``flows``
+    are this process's rows' (on ``like``'s device), the others' arrive by
+    one all-gather."""
+    from optical_flow_tpu_torch.parallel.mesh import all_gather_blocks, owner_layout
+
+    lay = owner_layout([mesh.owners[entry] for _, _, entry in groups], mesh.rank)
+    return torch.cat(all_gather_blocks(flows, lay.owner, lay.slot, lay.width, like))
 
 
 def _as_batch(x, dtype, dev):
@@ -85,7 +99,10 @@ def estimate_flow_batched(images_batch, method: str = "hs-brightness", mesh=None
     ``"cuda"`` (the default without a mesh; raises without a GPU) or
     ``"cpu"``.  ``mesh``: the batch splits over its batch rows (see the
     module docstring); ``device`` then defaults to, and must name, the
-    mesh's first device, where the flows are gathered.
+    mesh's first device, where the flows are gathered.  Across processes
+    (a mesh made after ``initialize_distributed``) every process passes the
+    whole batch, runs the rows whose first device is its own, and gets
+    every row's flows, in order, on its first device of the mesh.
 
     Every family follows its single-pair plan, which is the JAX package's
     fused program: ``jax.vmap`` of the family's whole-flow program.  Its
@@ -93,15 +110,19 @@ def estimate_flow_batched(images_batch, method: str = "hs-brightness", mesh=None
     for the BA presets with the high-pass (``fc``) the fused route is the
     one this matches.  Alt-BA returns its auxiliary field, as there.
     """
+    ope = _batched_method(method, params)
     if mesh is not None:
         B = len(images_batch)
         groups = _batch_groups(mesh, B, device, "estimate_flow_batched")
-        first = resolve_device(mesh.devices[0], "estimate_flow_batched")
+        home = resolve_device(mesh.home, "estimate_flow_batched")
         uv = [estimate_flow_batched(images_batch[sl], method, params=params, device=dev,
-                                    color_batch=None if color_batch is None else color_batch[sl])
-              for dev, sl in groups]
-        return torch.cat([x.to(first) for x in uv])
-    ope = _batched_method(method, params)
+                                    color_batch=None if color_batch is None else color_batch[sl]).to(home)
+              for dev, sl, entry in groups if mesh.is_local(entry)]
+        if not mesh.spans_processes:
+            return torch.cat(uv)
+        H, W = tuple(images_batch.shape[1:3])
+        like = torch.empty((B // len(groups), H, W, 2), dtype=_resolve_dtype(ope.out_dtype or ope.dtype), device=home)
+        return _gather_batch_rows(uv, mesh, groups, like)
     dev = resolve_device("cuda" if device is None else device, "estimate_flow_batched")
     dtype = _resolve_dtype(ope.dtype)
     with torch.no_grad():
@@ -140,7 +161,7 @@ def estimate_flow_batched_rgb(im1_batch, im2_batch, method: str = "classic+nl-fa
     ope = _batched_method(method, params)
     if mesh is not None:
         _batch_groups(mesh, len(im1_batch), device, "estimate_flow_batched_rgb")
-        device = mesh.devices[0]
+        device = mesh.home
     dev = resolve_device("cuda" if device is None else device, "estimate_flow_batched_rgb")
     dtype = _resolve_dtype(ope.dtype)
     with torch.no_grad():

@@ -17,7 +17,9 @@ with the family's plan (``methods/*.py``), in the order of its whole-flow
 program, so a pipelined flow is that of ``estimate_flow`` on the same
 device: only the placement differs.  All four families run: the
 Classic+NL colour-guide pyramids and alt-BA's (uv, uvhat) state ride
-through the schedule, Horn–Schunck's final median is its ``finish``.
+through the schedule, Horn–Schunck's final median is its ``finish``.  The
+pipeline runs in one process, as the JAX package's does (it places its
+groups by ``device_put``).
 """
 from __future__ import annotations
 

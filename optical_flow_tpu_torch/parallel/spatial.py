@@ -5,7 +5,16 @@ warp and derivatives, the linear systems, the distributed PCG, occlusion
 and the (weighted) median — runs on the row blocks, exchanging only halo
 strips and PCG inner products (``parallel/halo.py``, ``parallel/dist.py``).
 A sharded field is a list of (Hs, ...) row blocks, one a shard, in shard
-order, each on its shard's device.
+order, each on its shard's device: every shard in one process, or this
+process's shards when the mesh spans processes (``parallel/mesh.py``).  One
+level code serves both: the host-callable steps run it under
+``sharded_over(mesh)``, and the loops over shards, the weighted median's
+launches by device (:func:`_device_groups`) among them, run over this
+process's shards.  Whole-image work (preprocessing, ROF, pyramids, the
+levels too short to shard, the guard) runs replicated in every process on
+the gathered level, as the JAX package runs it outside ``shard_map``, and
+every host decision (the PCG's stop, HS's early stop) is read from sums
+gathered in shard order, the same bits in every process.
 
 * :func:`classic_nl_level_local` — the Classic+NL level; with
   ``use_color=False`` it is also the BA level (the same α-blended solve and
@@ -15,7 +24,8 @@ order, each on its shard's device.
   Li–Osher update through the sharded median.
 * :func:`hs_level_local` — the Horn–Schunck level, whose early stop tests
   the update's norm over all the shards, read on the host once a warp
-  iteration, so that every shard stops at the same iteration.
+  iteration, so that every shard (in every process) stops at the same
+  iteration.
 * The weighted median runs on each shard's halo-padded planes through the
   kernel's wrapper (``ops/cuda/wmedian_kernel.py::wmedian``): one launch
   for all the shards of a device, the shards as its batch axis.
@@ -54,7 +64,7 @@ from optical_flow_tpu_torch.ops.interp import _bspline3, gather_points, spline_c
 from optical_flow_tpu_torch.ops.stencil import FlowSystem, add_coupling, blend_systems
 from optical_flow_tpu_torch.parallel.dist import sharded_laplacian_apply_local, solve_flow_system_local
 from optical_flow_tpu_torch.parallel.halo import halo_exchange_rows
-from optical_flow_tpu_torch.parallel.mesh import SPACE_AXIS, gather_rows, psum, shard_rows
+from optical_flow_tpu_torch.parallel.mesh import SPACE_AXIS, gather_rows, psum, shard_layout, shard_rows, sharded_over
 from optical_flow_tpu_torch.utils.guard import guard_level, guard_level_pair
 
 SUPPORTED_INTERP = ("bi-cubic", "bi-linear", "cubic")
@@ -125,8 +135,8 @@ def _fixup_bottom(xs, scfg: SpatialConfig, mode: str) -> list:
     (clamped warp reads).  The field itself when there is no pad.
     """
     pad = scfg.pad
-    if pad == 0:
-        return xs
+    if pad == 0 or shard_layout(len(xs)).index[-1] != scfg.n - 1:
+        return xs  # no pad, or the last shard is another process's
     x = xs[-1]
     off = scfg.Hs - pad  # the last shard's first pad row: global row H_true
     if mode == "reflect":
@@ -178,7 +188,8 @@ def _warp_setup(scfg: SpatialConfig, images, interp, deriv_filter, blend, spline
     fx_k, fy_k, fxy_k = f.reshape(1, -1), f.reshape(-1, 1), np.outer(f, f)
     rv = fy_k.shape[0] // 2  # the derivative filter's vertical radius
 
-    g_col = [i * Hs + torch.arange(Hs, device=x.device)[:, None] for i, x in enumerate(images)]  # global rows
+    index = shard_layout(len(images)).index  # the global shard index of each of this process's shards
+    g_col = [g * Hs + torch.arange(Hs, device=x.device)[:, None] for g, x in zip(index, images)]  # global rows
     nc = images[0].shape[2] // 2
 
     # one symmetric exchange of the pair serves every derivative filter; with a
@@ -231,7 +242,6 @@ def _warp_setup(scfg: SpatialConfig, images, interp, deriv_filter, blend, spline
         bot = v10 * (1.0 - axx) + v11 * axx
         return top * (1.0 - ay) + bot * ay
 
-    n = len(images)
     frame2 = [[x[:, :, nc + c] for x in images] for c in range(nc)]
     # per channel, per shard: the stacked tables of the channel's warp
     if interp == "bi-cubic":
@@ -278,7 +288,7 @@ def _warp_setup(scfg: SpatialConfig, images, interp, deriv_filter, blend, spline
 
     ygrid = [g.to(dtype).expand(Hs, W) for g in g_col]
     xgrid = [torch.arange(W, dtype=dtype, device=g.device).expand(Hs, W) for g in g_col]
-    g0s = [i * Hs for i in range(n)]
+    g0s = [g * Hs for g in index]
 
     def warp_deriv_local(uv):
         """Per shard, (It, Ix, Iy): (Hs, W) for one channel, else (Hs, W, C)."""
@@ -679,10 +689,11 @@ def classic_nl_level_step_spatial(cfg, images, color, uv, alpha, mesh, halo: int
 
     if cfg.use_color and scfg.pad:
         color = pad_axis(color, 0, 0, scfg.pad, "mirror")  # the median's numpy-reflect
-    im_s, (uv_s,), tables = _shard_level(scfg, mesh, images, [uv], cfg.irls.interp, cfg.irls.deriv_filter)
-    out = classic_nl_level_local(cfg, scfg, im_s, shard_rows(color, mesh) if cfg.use_color else None, uv_s, alpha,
-                                 tables)
-    out = gather_rows(out, uv.device)[:H]
+    with sharded_over(mesh):
+        im_s, (uv_s,), tables = _shard_level(scfg, mesh, images, [uv], cfg.irls.interp, cfg.irls.deriv_filter)
+        out = classic_nl_level_local(cfg, scfg, im_s, shard_rows(color, mesh) if cfg.use_color else None, uv_s,
+                                     alpha, tables)
+        out = gather_rows(out, uv.device)[:H]
     if cfg.irls.guard:
         out = guard_level(out, uv, cfg.irls.guard)
     return out
@@ -723,9 +734,11 @@ def alt_ba_level_step_spatial(cfg, images, uv, uvhat, alpha, replacement: bool, 
         return alt_ba_level_step(cfg, images, uv, uvhat, alpha, replacement)
 
     H = images.shape[0]
-    im_s, (uv_s, uvhat_s), tables = _shard_level(scfg, mesh, images, [uv, uvhat], irls.interp, irls.deriv_filter)
-    out_uv, out_uvhat = alt_ba_level_local(cfg, scfg, im_s, uv_s, uvhat_s, alpha, replacement, tables)
-    out_uv, out_uvhat = gather_rows(out_uv, uv.device)[:H], gather_rows(out_uvhat, uv.device)[:H]
+    with sharded_over(mesh):
+        im_s, (uv_s, uvhat_s), tables = _shard_level(scfg, mesh, images, [uv, uvhat], irls.interp,
+                                                     irls.deriv_filter)
+        out_uv, out_uvhat = alt_ba_level_local(cfg, scfg, im_s, uv_s, uvhat_s, alpha, replacement, tables)
+        out_uv, out_uvhat = gather_rows(out_uv, uv.device)[:H], gather_rows(out_uvhat, uv.device)[:H]
     if irls.guard:
         out_uv, out_uvhat = guard_level_pair(out_uv, out_uvhat, uv, uvhat, irls.guard)
     return out_uv, out_uvhat
@@ -744,8 +757,9 @@ def hs_level_step_spatial(cfg, images, uv, mesh, halo: int = 6):
         return hs_level_step(cfg, images, uv)
 
     H = images.shape[0]
-    im_s, (uv_s,), tables = _shard_level(scfg, mesh, images, [uv], cfg.interp, cfg.deriv_filter)
-    out = gather_rows(hs_level_local(cfg, scfg, im_s, uv_s, tables), uv.device)[:H]
+    with sharded_over(mesh):
+        im_s, (uv_s,), tables = _shard_level(scfg, mesh, images, [uv], cfg.interp, cfg.deriv_filter)
+        out = gather_rows(hs_level_local(cfg, scfg, im_s, uv_s, tables), uv.device)[:H]
     if cfg.guard:
         out = guard_level(out, uv, cfg.guard)
     return out

@@ -180,7 +180,8 @@ def test_flow_mesh_and_row_shards():
 
 def test_distributed_pcg_equals_the_twin():
     from optical_flow_tpu_torch.ops.cuda.cg_kernel import cg_solve_plain
-    from optical_flow_tpu_torch.ops.stencil import build_irls_system, weighted_laplacian_apply, weighted_laplacian_diag
+    from optical_flow_tpu_torch.ops.stencil import (build_irls_system, system_apply_split, weighted_laplacian_apply,
+                                                    weighted_laplacian_diag)
     from optical_flow_tpu_torch.parallel import dist
     from optical_flow_tpu_torch.parallel.mesh import shard_rows
 
@@ -200,9 +201,10 @@ def test_distributed_pcg_equals_the_twin():
     x = dist.solve_flow_system_sharded(sysm, mesh, 1e-7, 1000)
     assert dist.solves == before[0] + 1 and dist.iterations > before[1]
     np.testing.assert_allclose(x.numpy(), cg_solve_plain(sysm, 1e-7, 1000).numpy(), rtol=0, atol=1e-8)
-    for algo in ("gear", "cheby"):
-        with pytest.raises(NotImplementedError, match="item 14c"):
-            dist.solve_flow_system_sharded(sysm, _mesh(), algo=algo)
+    for algo in ("gear", "cheby"):  # the other recurrences meet the same stopping rule, ||r|| <= rtol ||b||
+        x = dist.solve_flow_system_sharded(sysm, _mesh(), 1e-7, 1000, algo=algo)
+        r = torch.stack([sysm.b_u, sysm.b_v], -1) - torch.stack(system_apply_split(sysm, x[..., 0], x[..., 1]), -1)
+        assert float(torch.linalg.vector_norm(r)) <= 1e-7 * float(torch.linalg.vector_norm(torch.stack([sysm.b_u, sysm.b_v])))
 
 
 # ------------------------------------------------------------------ sharded levels against single-device ones
