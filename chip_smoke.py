@@ -125,7 +125,24 @@ Phases, each printing its results; any failed check exits non-zero:
     iteration, halo exchanges and each rank's launches and host time), then
     phase 12's pairs over ``flow_mesh(batch=2, space=1)``, one batch row a
     rank (every item bit-identical to the unmeshed batch).  Any rank's
-    failure fails the phase.
+    failure fails the phase;
+19. the JAX package's method-object API: RubberWhale through ``ope.images
+    = ...; ope.compute_flow()`` (bit-identical to phase 3's frame, 21 / 21 /
+    1 launches), the warm start ``compute_flow(init=<that flow>)`` in the
+    gate, ``compute_flow_base`` from zero flow at the finest level (3 PCG and
+    3 weighted-median launches) against the same call on the CPU (mean |d|
+    <= 1e-3 px), ``solvers.pcg_solve`` on the card against the PCG kernel on
+    phase 5's finest system (both converged, within phase 5's limit); then
+    the JAX package's 4K harness call (``benchmarks/throughput.py``): a
+    seeded uniform 2160x3840 frame and the same frame rolled 2 px, gray (the
+    plain median) and RGB (the Lab guide and the weighted median at
+    2160x3840), each finite with AEPE <= 0.1 px against (2, 0) on the
+    interior, PCG and ROF on their streaming paths, with levels, CG
+    iterations by level, launches, peak memory and one warm frame's latency;
+    the 4K weighted-median call against its twin (``wmedian_valid``), one 4K
+    streaming PCG solve and the 4K ROF call against theirs, each timed with
+    its bound; ``utils.profiling.trace`` around one frame (the trace names
+    the three kernels and the annotation) and ``StageTimer``.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -137,8 +154,9 @@ median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
 (streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
 of each path driven (counts set to 0 just before it), the paths of phases
-9-18 included (phase 18's summed over the ranks).  A line before those holds phases 13, 15, 16 and 17's
-latencies and phase 13's profile as JSON.  Without a CUDA device, or
+9-19 included (phase 18's summed over the ranks); the 4K calls of phase 19
+add ``frame4k_*``.  A line before those holds phases 13, 15, 16 and 17's
+latencies, phase 13's profile and phase 19's 4K frames as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -803,7 +821,7 @@ def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
     frame_ms = statistics.median(ev_ms)
     print(f"per-frame latency, median of 5 warm runs: {frame_ms:.2f} ms (CUDA events), "
           f"{statistics.median(host_ms):.2f} ms (host clock)  [{card}]")
-    return launches, recorded, recorded_cg, frame_ms
+    return launches, recorded, recorded_cg, frame_ms, uv
 
 
 def phase_wmedian_levels(torch, card, recorded):
@@ -850,7 +868,9 @@ def phase_wmedian_levels(torch, card, recorded):
 
 def phase_cg_levels(torch, dev, card, recorded):
     """The PCG kernel on the 21 systems of a main-path frame: each against the
-    twin, one solve's time at each level shape, the 21 solves' sum."""
+    twin, one solve's time at each level shape, the 21 solves' sum.  Returns
+    the results and the finest system (sysm, rtol, maxiter): of the finest
+    shape, the one of most iterations."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel
     from optical_flow_tpu_torch.ops.cuda.build import device_limits
 
@@ -912,8 +932,9 @@ def phase_cg_levels(torch, dev, card, recorded):
     b = cg_bound(H, W, it_k)
     print(f"cg main-path system {H}x{W} ({it_k} iterations): kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, "
           f"bound {b['bound_ms']:.4f} ms  [{card}]")
-    return {"main_path_ms": ms, "main_path_plain_ms": plain_ms, "main_path_bound_ms": b["bound_ms"],
-            "main_path_max_abs_err": err, "frame_sum_ms": frame_ms, "frame_sum_bound_ms": frame_bound}
+    return ({"main_path_ms": ms, "main_path_plain_ms": plain_ms, "main_path_bound_ms": b["bound_ms"],
+             "main_path_max_abs_err": err, "frame_sum_ms": frame_ms, "frame_sum_bound_ms": frame_bound},
+            (sysm, rtol, maxiter))
 
 
 def phase_profile(torch, dev, card, rgb1, rgb2, frame_ms, method="classic+nl-fast", params=PARAMS, run=None,
@@ -1289,6 +1310,15 @@ def phase_guard_noop(torch, dev, rgb1, rgb2):
     return launches
 
 
+def relative_residual(torch, sysm, x):
+    """||A x - b|| / ||b|| in float64."""
+    from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply
+
+    b = torch.stack([sysm.b_u, sysm.b_v], -1).double()
+    return float(torch.linalg.norm(system_apply(FlowSystem(*[f.double() for f in sysm]), x.double()) - b)
+                 / torch.linalg.norm(b))
+
+
 def phase_cg_finest(torch, dev, card, recorded):
     """classic++'s last 10 solves (the finest level of the last GNC stage, rtol
     1e-7, maxiter 1000) against the plain twin, as phase 5 holds them: within
@@ -1296,12 +1326,6 @@ def phase_cg_finest(torch, dev, card, recorded):
     iterations are not required (the sums' types differ); the residual must
     be within 10 x rtol or twice the float32 twin's."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel
-    from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply
-
-    def residual(sysm, x):
-        b = torch.stack([sysm.b_u, sysm.b_v], -1).double()
-        return float(torch.linalg.norm(system_apply(FlowSystem(*[f.double() for f in sysm]), x.double()) - b)
-                     / torch.linalg.norm(b))
 
     check(len(recorded) == 10, f"recorded {len(recorded)} classic++ solves, expected 10")
     total_ms = 0.0
@@ -1313,7 +1337,7 @@ def phase_cg_finest(torch, dev, card, recorded):
         x_d, it_d = cg_twin(torch, sysm, rtol, maxiter, sums=torch.float64)
         limit = 1e-5 * max(float(x_t.abs().max()), 1.0)
         err, err_d = (float((x_k - x).abs().max()) for x in (x_t, x_d))
-        res, res_t = residual(sysm, x_k), residual(sysm, x_t)
+        res, res_t = relative_residual(torch, sysm, x_k), relative_residual(torch, sysm, x_t)
         ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 3)
         total_ms += ms
         print(f"cg classic++ finest system {k + 1} {H}x{W} rtol {rtol:g}: iterations kernel {it_k} / plain {it_t} / "
@@ -2339,6 +2363,355 @@ def phase_multiprocess(torch, card, tu, tv, sharded_ref, batch_ref):
     return launches, host
 
 
+# phase 19: the JAX package's 4K harness (benchmarks/throughput.py::bench_4k):
+# a seeded uniform frame and the same frame rolled 2 px, gray and RGB; the
+# known answer (2, 0) on the interior (16 px in from every border, and the
+# columns the roll wraps); a Lab-guided 4K frame adds the weighted median
+FRAME_4K = (2160, 3840)
+SHIFT_4K = 2
+INTERIOR_4K = np.s_[16:-16, 18:-16]
+GATE_4K_AEPE = 0.1
+BASE_MEAN_DIFF = 1e-3  # compute_flow_base on the card against the CPU twins: mean |d|
+
+
+def _counted(torch, dev, fn):
+    """(result, launches by kernel, launches by path and PCG items, PCG iterations)
+    of ``fn()`` run with every count set to 0 just before it."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+
+    reset_counts()
+    with torch.no_grad():
+        out = fn()
+    torch.cuda.synchronize()
+    launches, by_path = read_counts()
+    return out, launches, by_path, cg_kernel.iteration_counts(dev)[1]
+
+
+def _method_object(torch, dev, rgb1, rgb2, params=PARAMS):
+    """classic+nl-fast as the JAX package's callers hold it: ``ope.images`` and
+    ``ope.color_images`` from ``preprocess_color_pair`` on the card, as
+    ``estimate_flow`` prepares them."""
+    from optical_flow_tpu_torch.config import load_of_method
+    from optical_flow_tpu_torch.utils.compat import preprocess_color_pair
+
+    ope = load_of_method("classic+nl-fast")
+    ope.parse_input_parameter(params)
+    a1, a2 = (torch.as_tensor(np.ascontiguousarray(x)).to(device=dev, dtype=torch.float32) for x in (rgb1, rgb2))
+    ope.images, ope.color_images = preprocess_color_pair(a1, a2)
+    return ope
+
+
+@contextlib.contextmanager
+def _last_full_size_calls(torch, hw):
+    """Within the block, the last weighted-median call and the last ROF call at
+    the frame size ``hw`` keep clones of their inputs in the dict yielded."""
+    from optical_flow_tpu_torch.ops import rof as rof_op, wmedian as wmedian_op
+
+    kept, wm_call, rof_call = {}, wmedian_op.wmedian, rof_op.rof_structure
+
+    def wm(*args):
+        if tuple(args[4]) == tuple(hw):
+            kept["wmedian"] = tuple(a.clone() if torch.is_tensor(a) else a for a in args)
+        return wm_call(*args)
+
+    def rof(im, theta, n_iters):
+        if tuple(im.shape[-2:]) == tuple(hw):
+            kept["rof"] = (im.clone(), theta, n_iters)
+        return rof_call(im, theta, n_iters)
+
+    wmedian_op.wmedian, rof_op.rof_structure = wm, rof
+    try:
+        yield kept
+    finally:
+        wmedian_op.wmedian, rof_op.rof_structure = wm_call, rof_call
+
+
+def _known_answer(uv):
+    """(AEPE against (SHIFT_4K, 0), median u, share of |u - SHIFT_4K| < 0.25) on the interior."""
+    inner = uv[INTERIOR_4K]
+    aepe = float(np.sqrt((inner[..., 0] - SHIFT_4K) ** 2 + inner[..., 1] ** 2).mean())
+    return aepe, float(np.median(inner[..., 0])), float((np.abs(inner[..., 0] - SHIFT_4K) < 0.25).mean())
+
+
+def phase_frame_4k(torch, dev, card, label, rgb):
+    """One 4K frame of the JAX harness's call, ``ope.images = stack(...);
+    ope.compute_flow()`` (classic+nl-fast, display off, the preset's solver):
+    a warm-up frame logging each PCG solve's iterations (a sync a solve) and
+    keeping the last full-size weighted-median, PCG and ROF inputs, then a
+    counted frame (no plain twin; peak memory) and its latency.  Gray
+    frames give no colour guide (the plain 5x5 median); RGB ones go through
+    ``preprocess_color_pair`` and the Lab guide (the weighted median)."""
+    from optical_flow_tpu_torch.config import load_of_method
+    from optical_flow_tpu_torch.utils.compat import preprocess_color_pair
+
+    rng = np.random.default_rng(SEED)
+    base = rng.uniform(0, 255, (*FRAME_4K, 3) if rgb else FRAME_4K).astype(np.float32)
+    im2 = np.roll(base, SHIFT_4K, axis=1)
+    ope = load_of_method("classic+nl-fast")
+    ope.display = False
+    if rgb:
+        ope.images, ope.color_images = preprocess_color_pair(torch.as_tensor(base, device=dev),
+                                                             torch.as_tensor(im2, device=dev))
+    else:
+        ope.images = torch.stack([torch.as_tensor(base, device=dev), torch.as_tensor(im2, device=dev)], 2)
+    with solve_log(torch, dev, keep=1) as log, _last_full_size_calls(torch, FRAME_4K) as kept:
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            ope.compute_flow()
+        torch.cuda.synchronize()
+    warm_s = time.perf_counter() - t0
+    solves = [(shape, its[0]) for shape, its, _ in log["cg"]]
+    torch.cuda.reset_peak_memory_stats(dev)
+    with no_plain_twins():
+        uv, launches, by_path, cg_iters = _counted(torch, dev, ope.compute_flow)
+    peak_gb = torch.cuda.max_memory_allocated(dev) / 1e9
+    start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    start.record()
+    with torch.no_grad():
+        ope.compute_flow()
+    end.record()
+    torch.cuda.synchronize()
+    host_ms, ev_ms = 1e3 * (time.perf_counter() - t0), start.elapsed_time(end)
+
+    uv_np = uv.cpu().numpy()
+    check(uv_np.shape == (*FRAME_4K, 2) and uv_np.dtype == np.float32, f"{label}: unexpected flow {uv_np.shape}")
+    check(np.isfinite(uv_np).all(), f"{label}: flow is not finite")
+    aepe, med_u, share = _known_answer(uv_np)
+    runs = level_runs(solves)
+    n_wm = launches["wmedian"]
+    print(f"{label} {FRAME_4K[1]}x{FRAME_4K[0]} (rolled {SHIFT_4K} px): AEPE against ({SHIFT_4K}, 0) on the interior "
+          f"{aepe:.6f} px (gate {GATE_4K_AEPE}), median u {med_u:.6f}, share |u - {SHIFT_4K}| < 0.25: {share:.6f}")
+    print(f"{label}: pyramid levels {ope.pyramid_levels} (auto_level) + {ope.gnc_pyramid_levels} GNC levels; "
+          f"launches {launches}, by path {by_path}; CG iterations {cg_iters} (warm-up {sum(i for _, i in solves)}); "
+          "per level, coarse to fine (shape: solves, iterations): "
+          + "; ".join(f"{h}x{w}: {k}, {i}" for (h, w), k, i in runs))
+    print(f"{label}: one warm frame {ev_ms:.2f} ms (CUDA events), {host_ms:.2f} ms (host clock); warm-up frame "
+          f"{warm_s:.2f} s (one sync a solve); peak memory {peak_gb:.3f} GB (max_memory_allocated)  [{card}]")
+    check(aepe <= GATE_4K_AEPE, f"{label}: AEPE {aepe:.4f} px against the known answer, gate {GATE_4K_AEPE}")
+    check(launches["cg"] == len(solves) and launches["rof"] == 1 and n_wm == (len(solves) if rgb else 0),
+          f"{label}: unexpected launches {launches} ({len(solves)} PCG solves in the warm-up frame)")
+    check(by_path["cg streaming"] > 0 and by_path["rof streaming"] == 1,
+          f"{label}: the 4K solves or the ROF call did not take the streaming path: {by_path}")
+    check(cg_iters == sum(i for _, i in solves), f"{label}: CG iterations differ between two frames")
+    return launches, {"frame_ms": ev_ms, "host_ms": host_ms, "peak_gb": peak_gb, "aepe": aepe,
+                      "levels": ope.pyramid_levels}, kept, log["kept"][0]
+
+
+def check_kernels_4k(torch, dev, card, kept, cg_system):
+    """The 4K frame's full-size weighted-median call against its twin
+    (``wmedian_valid``) and its time; one 4K streaming PCG solve (the frame's
+    last system, held as phase 7 holds classic++'s) and the frame's ROF call
+    against their twins, with their times (CUDA events) and bounds, as phase
+    2 computes them."""
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
+    from optical_flow_tpu_torch.ops.cuda.rof_kernel import rof_structure, rof_structure_2d
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
+
+    out = {}
+    args = kept["wmedian"]
+    H, W = args[4]
+    wm, ref = wmedian(*args), wmedian_plain(*args)
+    torch.cuda.synchronize()
+    n_diff, frac, valid = wmedian_valid(torch, args, wm, ref)
+    ms = cuda_ms(torch, lambda: wmedian(*args), 5)
+    plain_ms = cuda_ms(torch, lambda: wmedian_plain(*args), 1)
+    b = wmedian_bound(args)
+    print(f"wmedian 4K input {H}x{W} hsz {args[5]}: {n_diff} of {wm.numel()} values differ from the twin "
+          f"({100 * frac:.4f}% identical), each a median within the sums' rounding: {valid}; kernel {ms:.3f} ms, "
+          f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    check(frac >= WMEDIAN_SHARE and valid, "weighted median outside the sums' rounding on the 4K frame's input")
+    out["wmedian"] = {"frame4k_ms": ms, "frame4k_plain_ms": plain_ms, "frame4k_bound_ms": b["bound_ms"],
+                      "frame4k_max_abs_err": float((wm - ref).abs().max())}
+    del wm, ref
+
+    sysm, rtol, maxiter = cg_system
+    H, W = sysm.a11.shape
+    plan = cg_kernel.cg_plan(1, H, W, *device_limits(dev))
+    x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
+    it_k = cg_kernel.iteration_counts(dev)[0]
+    x_t, it_t = cg_twin(torch, sysm, rtol, maxiter)
+    x_d = cg_twin(torch, sysm, rtol, maxiter, sums=torch.float64)[0]
+    limit = 1e-5 * max(float(x_t.abs().max()), 1.0)
+    err, err_d = (float((x_k - x).abs().max()) for x in (x_t, x_d))
+    res, res_t = relative_residual(torch, sysm, x_k), relative_residual(torch, sysm, x_t)
+    ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 2)
+    plain_ms = cuda_ms(torch, lambda: cg_kernel.cg_solve_plain(sysm, rtol, maxiter), 1)
+    b = cg_bound(H, W, it_k)
+    print(f"cg 4K system {H}x{W} rtol {rtol:g} ({plan.path}): iterations kernel {it_k} / plain {it_t}; max|dx| / limit "
+          f"{err / limit:.3f} against the twin, {err_d / limit:.3f} against it with double sums; relative residual "
+          f"kernel {res:.3e}, plain twin {res_t:.3e}; kernel {ms:.3f} ms ({1e3 * ms / max(it_k, 1):.2f} us an iteration), plain {plain_ms:.3f} "
+          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    check(plan.path == "streaming", f"cg 4K: path {plan.path}")
+    # as phase 7 holds classic++'s rtol-1e-7 solves: float32 stops the true
+    # residual short of 1e-7, so 10 x rtol or twice the float32 twin's
+    check(min(err, err_d) <= limit and res <= max(10 * rtol, 2 * res_t),
+          f"cg 4K system: max|dx| {err:.3e} / {err_d:.3e} (limit {limit:.3e}), residual {res:.3e} (twin {res_t:.3e})")
+    out["cg"] = {"frame4k_ms": ms, "frame4k_plain_ms": plain_ms, "frame4k_bound_ms": b["bound_ms"],
+                 "frame4k_iterations": it_k, "frame4k_max_abs_err": min(err, err_d)}
+
+    im, theta, n_iters = kept["rof"]
+    plan = rof_kernel.rof_plan(*im.shape, *device_limits(dev))
+    r_k, r_t = rof_structure(im, theta, n_iters), rof_structure_2d(im, theta, n_iters)
+    torch.cuda.synchronize()
+    err = float((r_k - r_t).abs().max())
+    ms = cuda_ms(torch, lambda: rof_structure(im, theta, n_iters), 3)
+    plain_ms = cuda_ms(torch, lambda: rof_structure_2d(im, theta, n_iters), 1)
+    n = im.numel()
+    b = bound(n * (28 * n_iters + 5), 8 * n)  # as phase 2
+    print(f"rof 4K input {'x'.join(map(str, im.shape))} ({plan.path}), {n_iters} iterations: max|d| against the twin "
+          f"{err:.3e} (limit 1e-6); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
+          f"({b['bound_by']})  [{card}]")
+    check(plan.path == "streaming" and err <= 1e-6, f"rof 4K: path {plan.path}, max|d| {err:.3e}")
+    out["rof"] = {"frame4k_ms": ms, "frame4k_plain_ms": plain_ms, "frame4k_bound_ms": b["bound_ms"],
+                  "frame4k_max_abs_err": err}
+    return out
+
+
+def traced_frame(logdir, device="cuda:0"):
+    """Phase 19's profiled frame, run in a process of its own (the library
+    already built): one warm RubberWhale ``compute_flow()``, then one under
+    ``utils.profiling.trace(logdir)`` inside ``annotate``."""
+    import torch
+
+    from optical_flow_tpu_torch.io.flo import read_flow_file
+    from optical_flow_tpu_torch.utils.profiling import annotate, trace
+
+    dev = torch.device(device)
+    if dev.type == "cuda":
+        float32_settings(torch)
+    rgb1, rgb2, _, _ = read_flow_file("RubberWhale", 10)
+    ope = _method_object(torch, dev, rgb1, rgb2)
+    with torch.no_grad():
+        ope.compute_flow()
+        with trace(logdir), annotate("phase19-method-object"):
+            ope.compute_flow()
+
+
+def phase_method_objects(torch, dev, card, rgb1, rgb2, tu, tv, main_uv, finest_cg):
+    """The JAX package's method-object API on the card: RubberWhale through
+    ``ope.images = ...; ope.compute_flow()`` (bit-identical to phase 3's
+    ``estimate_flow`` frame, the same launches), the warm start
+    ``compute_flow(init=<that flow>)`` in the gate, ``compute_flow_base``
+    from zero flow at the finest level against the CPU run of its plain twins
+    (mean |d| <= BASE_MEAN_DIFF), ``pcg_solve`` against the PCG kernel on
+    phase 5's finest system, the two 4K frames and their kernels, and the
+    profiling utilities.  Returns the launches by path and the 4K results."""
+    import json as json_mod
+    import tempfile
+
+    from optical_flow_tpu_torch import flow_angular_error
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.stencil import system_apply, system_diag, system_rhs
+    from optical_flow_tpu_torch.solvers import pcg_solve
+    from optical_flow_tpu_torch.utils.profiling import StageTimer
+
+    t_phase = time.perf_counter()
+    by_path = {}
+    ope = _method_object(torch, dev, rgb1, rgb2)
+    with no_plain_twins():
+        uv, by_path["method object"], paths, cold_iters = _counted(torch, dev, ope.compute_flow)
+    same = torch.equal(uv, main_uv)
+    print(f"method object RubberWhale 584x388: ope.compute_flow() torch.equal to phase 3's estimate_flow frame: {same}; "
+          f"launches {by_path['method object']}, by path {paths}, CG iterations {cold_iters}")
+    check(same, "the method-object frame differs from estimate_flow's")
+    check(by_path["method object"] == {"wmedian": 21, "cg": 21, "rof": 1}, f"unexpected launches {by_path['method object']}")
+
+    with no_plain_twins():
+        warm, by_path["warm start"], _, warm_iters = _counted(torch, dev, lambda: ope.compute_flow(init=uv))
+    errs = {}
+    for key, f in (("cold", uv), ("warm", warm)):
+        f_np = f.cpu().numpy()
+        check(np.isfinite(f_np).all(), f"method object {key} flow is not finite")
+        aae, _, aepe = flow_angular_error(tu, tv, f_np[..., 0], f_np[..., 1])
+        errs[key] = (aae, aepe)
+    print(f"warm start compute_flow(init=<the frame's flow>): AAE {errs['warm'][0]:.4f} deg, AEPE {errs['warm'][1]:.5f} "
+          f"px, {warm_iters} CG iterations, against the cold frame's {errs['cold'][0]:.4f} / {errs['cold'][1]:.5f}, "
+          f"{cold_iters} (gate {TARGET_AAE} +- {GATE_AAE} / {TARGET_AEPE} +- {GATE_AEPE}); launches {by_path['warm start']}")
+    check(abs(errs["warm"][0] - TARGET_AAE) <= GATE_AAE and abs(errs["warm"][1] - TARGET_AEPE) <= GATE_AEPE,
+          "the warm start is outside the classic+nl-fast gate")
+
+    zero = torch.zeros_like(uv)
+    with no_plain_twins():
+        base, by_path["compute_flow_base"], _, base_iters = _counted(torch, dev, lambda: ope.compute_flow_base(zero))
+    cpu = _method_object(torch, torch.device("cpu"), rgb1, rgb2)
+    with torch.no_grad():
+        base_cpu = cpu.compute_flow_base(zero.cpu())
+    d = (base.cpu() - base_cpu).abs()
+    print(f"compute_flow_base(0) at 388x584 with the Lab guide: launches {by_path['compute_flow_base']}, "
+          f"{base_iters} CG iterations; against the same call on the CPU (float32, the plain twins): mean |d| "
+          f"{float(d.mean()):.3e} px (limit {BASE_MEAN_DIFF:g}), max |d| {float(d.max()):.3e} px")
+    check(by_path["compute_flow_base"] == {"wmedian": 3, "cg": 3, "rof": 0},
+          f"compute_flow_base: unexpected launches {by_path['compute_flow_base']}")
+    check(bool(torch.isfinite(base).all()) and float(d.mean()) <= BASE_MEAN_DIFF, "compute_flow_base differs from its CPU run")
+
+    sysm, rtol, maxiter = finest_cg
+    H, W = sysm.a11.shape
+    x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
+    it_k = cg_kernel.iteration_counts(dev)[0]
+    applies = [0]
+
+    def apply_A(v):
+        applies[0] += 1
+        return system_apply(sysm, v)
+
+    def dot64(a, b):  # the kernel's own summation type
+        return (a.double() * b.double()).sum().to(a.dtype)
+
+    b = system_rhs(sysm)
+    x_p = pcg_solve(apply_A, b, system_diag(sysm), rtol, maxiter, a12=sysm.a12)
+    it_p = applies[0] - 1
+    x_d = pcg_solve(lambda v: system_apply(sysm, v), b, system_diag(sysm), rtol, maxiter, dot=dot64, a12=sysm.a12)
+    b64 = b.double()
+    sys64 = type(sysm)(*[f.double() for f in sysm])
+    res = {k: float(torch.linalg.norm(system_apply(sys64, x.double()) - b64) / torch.linalg.norm(b64))
+           for k, x in (("kernel", x_k), ("pcg_solve", x_p))}
+    limit = 1e-5 * max(float(x_k.abs().max()), 1.0)
+    err, err_d = float((x_p - x_k).abs().max()), float((x_d - x_k).abs().max())
+    print(f"pcg_solve on the card, phase 5's finest system {H}x{W} rtol {rtol:g}: iterations kernel {it_k} / pcg_solve "
+          f"{it_p} (maxiter {maxiter}); max|dx| from the kernel {err:.3e}, with float64 sums {err_d:.3e} (limit "
+          f"{limit:.3e}); relative residual kernel {res['kernel']:.3e}, pcg_solve {res['pcg_solve']:.3e}")
+    check(it_k < maxiter and it_p < maxiter, "the kernel or pcg_solve did not converge")
+    check(min(err, err_d) <= limit and max(res.values()) <= 10 * rtol, "pcg_solve and the PCG kernel disagree")
+
+    frames, kernels_4k = {}, {}
+    for label, rgb in (("4K gray", False), ("4K rgb", True)):
+        by_path[label], frames[label], kept, cg_system = phase_frame_4k(torch, dev, card, label, rgb)
+        if rgb:
+            kernels_4k = check_kernels_4k(torch, dev, card, kept, cg_system)
+        del kept, cg_system
+
+    # the traced frame runs in a fresh process: in this one, minutes old,
+    # the CUDA profiler drops a few more kernels from its record with every
+    # minute (the ROF call among them after ~4 minutes; PERF.md §6)
+    with tempfile.TemporaryDirectory() as logdir:
+        child = subprocess.run(
+            [sys.executable, "-c", f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                                   f"chip_smoke.traced_frame({logdir!r})"],
+            cwd=REPO, capture_output=True, text=True, timeout=RANKS_TIMEOUT)
+        check(child.returncode == 0, f"the traced frame's process failed: {child.stderr[-3000:]}")
+        with open(os.path.join(logdir, "trace.json")) as f:
+            events = json_mod.load(f)["traceEvents"]
+    names = {e.get("name", "") for e in events}
+    kernel_names = {e.get("name", "") for e in events if e.get("cat") == "kernel"}
+    found = {k: any(tag in nm for nm in kernel_names)
+             for k, tag in (("wmedian", "wmedian_kernel"), ("cg", "cg_"), ("rof", "rof_"))}
+    timer = StageTimer()
+    with timer.stage("compute_flow", sync=uv):
+        with torch.no_grad():
+            ope.compute_flow()
+    print(f"profiling: trace.json names the kernels {found}, the annotation: {'phase19-method-object' in names}; "
+          f"StageTimer: {timer.report().strip()}")
+    check(all(found.values()) and "phase19-method-object" in names,
+          f"the trace misses a kernel or the annotation: {len(kernel_names)} kernel names, "
+          f"{sorted(kernel_names)[:40]}")
+    check(timer.records[0][1] > 0, "StageTimer recorded no time")
+    print(f"method objects: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return by_path, frames, kernels_4k
+
+
 def main():
     try:
         import torch
@@ -2365,10 +2738,11 @@ def main():
             "rof": check_rof(torch, dev, card, rgb1, rgb2),
         }
         check_cg_batched(torch, dev, card, rng)
-        launches, recorded, recorded_cg, frame_ms = phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv)
+        launches, recorded, recorded_cg, frame_ms, main_uv = phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv)
         results["wmedian"].update(phase_wmedian_levels(torch, card, recorded))
         del recorded
-        results["cg"].update(phase_cg_levels(torch, dev, card, recorded_cg))
+        cg_levels, finest_cg = phase_cg_levels(torch, dev, card, recorded_cg)
+        results["cg"].update(cg_levels)
         del recorded_cg
         phase_profile(torch, dev, card, rgb1, rgb2, frame_ms)
         launches_by_path = {"classic+nl-fast": launches}
@@ -2411,6 +2785,11 @@ def main():
         print(f"multi-device: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
         process_launches, process_host_s = phase_multiprocess(torch, card, tu, tv, sharded_ref, batch_ref)
         launches_by_path.update(process_launches)
+        api_launches, frames_4k, kernels_4k = phase_method_objects(torch, dev, card, rgb1, rgb2, tu, tv, main_uv,
+                                                                   finest_cg)
+        launches_by_path.update(api_launches)
+        for name, extra in kernels_4k.items():
+            results[name].update(extra)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2431,7 +2810,7 @@ def main():
     print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof, "families": family_latency,
                                           "sharded": sharded_latency,
                                           "multi_device": {"sharded_host_ms": family_ms, **pipeline_ms},
-                                          "multi_process_host_s": process_host_s}))
+                                          "multi_process_host_s": process_host_s, "frames_4k": frames_4k}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

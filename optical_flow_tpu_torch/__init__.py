@@ -15,14 +15,18 @@ reference this one is tested against.  This package imports ``torch`` and
 from optical_flow_tpu_torch.config import available_methods, load_of_method, method_from_state
 from optical_flow_tpu_torch.evaluation.metrics import flow_angular_error
 from optical_flow_tpu_torch.interface import estimate_flow
+from optical_flow_tpu_torch.io.flo import read_flo, read_flow_file, write_flo
 from optical_flow_tpu_torch.parallel.pipeline import estimate_flow_pipelined
 from optical_flow_tpu_torch.parallel.video import estimate_flow_stream, estimate_flow_video
 from optical_flow_tpu_torch.solvers.direct import dense_solve
 from optical_flow_tpu_torch.solvers.sor import sor_solve
 from optical_flow_tpu_torch.utils.guard import flow_health
+from optical_flow_tpu_torch.viz.flow_color import compute_color, flow_to_color, make_colorwheel
+from optical_flow_tpu_torch.viz.plot_flow import plot_flow
 
 __all__ = [
     "available_methods",
+    "compute_color",
     "dense_solve",
     "estimate_flow",
     "estimate_flow_pipelined",
@@ -30,7 +34,13 @@ __all__ = [
     "estimate_flow_video",
     "flow_angular_error",
     "flow_health",
+    "flow_to_color",
     "load_of_method",
+    "make_colorwheel",
     "method_from_state",
+    "plot_flow",
+    "read_flo",
+    "read_flow_file",
     "sor_solve",
+    "write_flo",
 ]

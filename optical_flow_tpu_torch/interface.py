@@ -92,8 +92,12 @@ def estimate_flow(im1, im2, method: str = "classic+nl-fast", params=None, device
         ope.parse_input_parameter(params)
     dev = resolve_device("cuda" if device is None else device) if mesh is None else _apply_mesh(ope, method, mesh, device)
     with torch.no_grad():
-        images, color = prepare_pair(ope, im1, im2, dev)
-        uv = ope.compute_flow(images, color)
+        # the JAX package's call: the pair and, where the preset asks for
+        # colour, the guide go on the method object
+        ope.images, color = prepare_pair(ope, im1, im2, dev)
+        if ope.color_images is not None:
+            ope.color_images = color
+        uv = ope.compute_flow()
         if ope.out_dtype is not None:
             uv = uv.to(_resolve_dtype(ope.out_dtype))
     return uv

@@ -115,7 +115,7 @@ def alt_ba_pyramids(plan: AltBAFlowPlan, images, batch_dims: int = 0):
 
 
 def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = False, checkpoint=None, mesh=None,
-                        halo_of=None):
+                        halo_of=None, stage_end=None):
     """The whole GNC + coarse-to-fine Alt-BA flow; returns the auxiliary field.
     ``checkpoint(stage, level, uv)`` after every level, if given (``uv``,
     not the auxiliary field, as in the JAX package).  With a ``mesh`` each
@@ -147,6 +147,8 @@ def alt_ba_flow_program(plan: AltBAFlowPlan, images, uv, uvhat, display: bool = 
                                                       halo_of(uv))
             if checkpoint is not None:
                 checkpoint(stage_idx, level, uv)
+        if stage_end is not None:
+            stage_end(stage_idx, uv)
     return uvhat
 
 
@@ -222,15 +224,19 @@ class AltBAOpticalFlow(BAOpticalFlow):
             stages=stages,
         )
 
-    def compute_flow(self, images, color=None):
-        """The auxiliary field (H, W, 2) from the (H, W, 2) gray pair; no colour guide."""
+    def compute_flow(self, init=None, gt=None):
+        """The auxiliary field (H, W, 2) of ``self.images``, the (H, W, 2C) pair,
+        with both fields starting from ``init`` (default zero); no colour guide."""
+        images, _, uv = self._flow_inputs(init)
         sz = tuple(int(s) for s in images.shape[:2])
-        uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
         return alt_ba_flow_program(self._make_alt_plan(sz), images, uv, uv, display=bool(self.display),
-                                   checkpoint=self.checkpoint, mesh=self.spatial_mesh, halo_of=self._spatial_halo_of())
+                                   checkpoint=self.checkpoint, mesh=self.spatial_mesh, halo_of=self._spatial_halo_of(),
+                                   stage_end=self._stage_printer())
 
-    def compute_flow_base(self, images, uv, uvhat=None):
-        """One level at the method's own ``alpha`` and ``replacement``, from ``uv``
-        (and ``uvhat``, by default ``uv``); returns (uv, uvhat)."""
-        uvhat = uv if uvhat is None else uvhat
+    def compute_flow_base(self, uv, uvhat=None):
+        """One level on ``self.images`` at the method's own ``alpha`` and
+        ``replacement``, from ``uv`` (and ``uvhat``, by default ``uv``);
+        returns (uv, uvhat)."""
+        images, _, uv = self._flow_inputs(uv)
+        uvhat = uv if uvhat is None else self._as_tensor(uvhat, uv.device)
         return alt_ba_level_step(self._alt_cfg(), images, uv, uvhat, float(self.alpha), bool(self.replacement))

@@ -130,7 +130,8 @@ def irls_pyramids(kind: str, alp: float, plan, images, batch_dims: int = 0):
             build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, batch_dims))
 
 
-def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpoint=None, mesh=None, halo_of=None):
+def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpoint=None, mesh=None, halo_of=None,
+                    stage_end=None):
     """The whole GNC + coarse-to-fine BA flow; ``checkpoint(stage, level, uv)``
     after every level, if given.  With a ``mesh`` each level runs
     row-sharded (``parallel/spatial.py``) with the warp halo ``halo_of(uv)``.
@@ -158,6 +159,8 @@ def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpo
                 uv = ba_level_step_spatial(cfg, cur[level], uv, alpha, mesh, halo_of(uv))
             if checkpoint is not None:
                 checkpoint(stage_idx, level, uv)
+        if stage_end is not None:
+            stage_end(stage_idx, uv)
     return uv
 
 
@@ -254,9 +257,16 @@ class BAOpticalFlow(BaseOpticalFlow):
             stages=stages,
         )
 
-    def compute_flow(self, images, color=None):
-        """Flow (H, W, 2) from the (H, W, 2) gray pair; BA has no colour guide."""
+    def compute_flow(self, init=None, gt=None):
+        """Flow (H, W, 2) of ``self.images``, the (H, W, 2C) pair, from ``init``
+        (default zero); BA has no colour guide and prints no error against ``gt``."""
+        images, _, uv = self._flow_inputs(init)
         sz = tuple(int(s) for s in images.shape[:2])
-        uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
         return ba_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint,
-                               mesh=self.spatial_mesh, halo_of=self._spatial_halo_of())
+                               mesh=self.spatial_mesh, halo_of=self._spatial_halo_of(),
+                               stage_end=self._stage_printer())
+
+    def compute_flow_base(self, uv):
+        """One level on ``self.images`` from ``uv`` at the method's ``alpha``."""
+        images, _, uv = self._flow_inputs(uv)
+        return ba_level_step(self._level_cfg(), images, uv, float(self.alpha))

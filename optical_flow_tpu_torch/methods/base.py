@@ -3,8 +3,15 @@
 Mutable attribute configuration plus ``parse_input_parameter``, as in the
 JAX package.  The compute dtype is a torch dtype (float32 by default;
 float64 for the CPU parity tests).
+
+The JAX contract of a method object: set ``ope.images`` (the (H, W, 2C)
+pair) and, for Classic+NL, ``ope.color_images`` (the guide), then call
+``compute_flow(init=None, gt=None)`` for the whole flow or
+``compute_flow_base(uv)`` for one level at the finest size.
 """
 from __future__ import annotations
+
+import time
 
 import numpy as np
 import torch
@@ -142,5 +149,65 @@ class BaseOpticalFlow:
             float(self.sor_tol),
         )
 
-    def compute_flow(self, images, color=None):
+    def _as_tensor(self, x, device):
+        """``x`` as a ``self.dtype`` tensor on ``device``."""
+        from optical_flow_tpu_torch.interface import _resolve_dtype
+
+        if not torch.is_tensor(x):
+            x = torch.as_tensor(np.ascontiguousarray(x))
+        return x.to(device=device, dtype=_resolve_dtype(self.dtype))
+
+    def _flow_inputs(self, init=None):
+        """(images, colour guide or None, starting flow) of ``self.images``.
+
+        A tensor runs on the device it lives on; anything else (numpy, as the
+        JAX package takes through ``jnp.asarray``) goes to ``"cuda"`` and so
+        raises without a GPU.  The guide goes to the images' device; a guide
+        smaller than the images, such as the presets' (1, 1, 3) placeholder,
+        means no guide.  ``init`` (default zero) becomes the starting flow.
+        """
+        from optical_flow_tpu_torch.interface import resolve_device
+
+        if self.images is None:
+            raise ValueError("compute_flow: set ope.images to the (H, W, 2C) pair first")
+        images = self.images
+        dev = images.device if torch.is_tensor(images) else resolve_device("cuda", "compute_flow")
+        images = self._as_tensor(images, dev)
+        sz = tuple(int(s) for s in images.shape[:2])
+        color = self.color_images
+        if color is not None and int(np.prod(tuple(color.shape[:2]))) < sz[0] * sz[1]:
+            color = None
+        if color is not None:
+            color = self._as_tensor(color, dev)
+        if init is None:
+            uv = torch.zeros((*sz, 2), dtype=images.dtype, device=dev)
+        else:
+            uv = self._as_tensor(init, dev)
+        return images, color, uv
+
+    def _stage_printer(self, gt=None):
+        """Under ``display``, ``stage_end(stage, uv)`` printing the JAX package's
+        line at the end of a GNC stage: the minutes since the call, and with
+        ``gt`` (an (H, W, 2) flow) the AAE / STD / EPE of ``uv``; else None."""
+        if not self.display:
+            return None
+        from optical_flow_tpu_torch.evaluation.metrics import flow_angular_error
+
+        start = time.time()
+
+        def stage_end(stage, uv):
+            msg = f"GNC stage {stage + 1} finished, {(time.time() - start) / 60:.2f} minutes passed"
+            if gt is not None:
+                g = gt.detach().cpu().numpy() if torch.is_tensor(gt) else np.asarray(gt)
+                f = uv.detach().cpu().numpy()
+                aae, stdae, aepe = flow_angular_error(g[:, :, 0], g[:, :, 1], f[:, :, 0], f[:, :, 1], 0)
+                msg += f"  AAE {aae:.3f} STD {stdae:.3f} EPE {aepe:.3f}"
+            print(msg)
+
+        return stage_end
+
+    def compute_flow(self, init=None, gt=None):
+        raise NotImplementedError
+
+    def compute_flow_base(self, uv):
         raise NotImplementedError

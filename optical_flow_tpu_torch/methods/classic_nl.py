@@ -91,9 +91,10 @@ def color_pyramids(plan: NLFlowPlan, color, batch_dims: int = 0):
 
 
 def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool = False, checkpoint=None,
-                            mesh=None, halo_of=None):
+                            mesh=None, halo_of=None, stage_end=None):
     """The whole GNC + coarse-to-fine Classic+NL flow; ``checkpoint(stage,
-    level, uv)`` after every level, if given.  With a ``mesh`` each level
+    level, uv)`` after every level and ``stage_end(stage, uv)`` after every
+    GNC stage, if given.  With a ``mesh`` each level
     runs row-sharded (``parallel/spatial.py``) with the warp halo
     ``halo_of(uv)`` of its resampled incoming flow.
 
@@ -125,6 +126,8 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
                 uv = classic_nl_level_step_spatial(cfg, cur[level], ccur[level], uv, alpha, mesh, halo_of(uv))
             if checkpoint is not None:
                 checkpoint(stage_idx, level, uv)
+        if stage_end is not None:
+            stage_end(stage_idx, uv)
     return uv
 
 
@@ -213,12 +216,21 @@ class ClassicNLOpticalFlow(BAOpticalFlow):
             use_color=use_color,
         )
 
-    def compute_flow(self, images, color=None):
-        """Flow (H, W, 2) from the (H, W, 2) gray pair and the optional guide."""
+    def compute_flow(self, init=None, gt=None):
+        """Flow (H, W, 2) of ``self.images``, the (H, W, 2C) pair, guided by
+        ``self.color_images`` (the (1, 1, 3) placeholder of the presets means
+        no guide), from ``init`` (default zero, resampled to the coarsest
+        level).  Under ``display`` each GNC stage's line carries the AAE /
+        STD / EPE against ``gt``, an (H, W, 2) flow, if given."""
+        images, color, uv = self._flow_inputs(init)
         sz = tuple(int(s) for s in images.shape[:2])
-        if color is not None and int(np.prod(color.shape[:2])) < sz[0] * sz[1]:
-            color = None  # the (1, 1, 3) placeholder of the preset table means "no colour"
         plan = self._make_nl_plan(sz, use_color=color is not None)
-        uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
         return classic_nl_flow_program(plan, images, color, uv, display=bool(self.display), checkpoint=self.checkpoint,
-                                       mesh=self.spatial_mesh, halo_of=self._spatial_halo_of())
+                                       mesh=self.spatial_mesh, halo_of=self._spatial_halo_of(),
+                                       stage_end=self._stage_printer(gt))
+
+    def compute_flow_base(self, uv):
+        """One level on ``self.images`` from ``uv`` at the method's ``alpha``,
+        guided by ``self.color_images`` where the guide covers the images."""
+        images, color, uv = self._flow_inputs(uv)
+        return classic_nl_level_step(self._nl_cfg(use_color=color is not None), images, color, uv, float(self.alpha))

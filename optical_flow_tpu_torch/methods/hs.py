@@ -180,10 +180,16 @@ class HSOpticalFlow(BaseOpticalFlow):
             final_median=self._median_size(),
         )
 
-    def compute_flow(self, images, color=None):
-        """Flow (H, W, 2) from the (H, W, 2) gray pair; HS has no colour guide."""
+    def compute_flow(self, init=None, gt=None):
+        """Flow (H, W, 2) of ``self.images``, the (H, W, 2C) pair, from ``init``
+        (default zero); HS has no colour guide and prints no error against ``gt``."""
+        images, _, uv = self._flow_inputs(init)
         sz = tuple(int(s) for s in images.shape[:2])
-        uv = torch.zeros((*sz, 2), dtype=images.dtype, device=images.device)
         # HS's halo grows with its own warp iterations, not max_iters
         return hs_flow_program(self._make_plan(sz), images, uv, display=bool(self.display), checkpoint=self.checkpoint,
                                mesh=self.spatial_mesh, halo_of=self._spatial_halo_of(self.max_warping_iters))
+
+    def compute_flow_base(self, uv):
+        """One level on ``self.images`` from ``uv``, with the early stop."""
+        images, _, uv = self._flow_inputs(uv)
+        return hs_level_step(self._level_cfg(), images, uv)

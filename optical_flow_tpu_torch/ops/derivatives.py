@@ -176,6 +176,36 @@ def _hermite_bicubic(tables, yq, xq):
     return val, vx, vy, oob
 
 
+def partial_deriv(images, uv, interp_method: str = "cubic", deriv_filter=None, blend: float = 0.5):
+    """The reference's one-shot surface: (It, Ix, Iy) of ``images`` warped by ``uv``."""
+    return warp_deriv(precompute_warp(images, interp_method, deriv_filter, blend), uv)
+
+
+def interp2_bicubic(Z, XI, YI, deriv_filter=None):
+    """Hermite bicubic interpolation of the (H, W) ``Z`` with analytical
+    derivatives at the 1-based points (``XI``, ``YI``), of any one shape:
+    returns (ZI, ZXI, ZYI), with ZI NaN where a point is out of bounds (its
+    ceil neighbour off the grid).  The derivative tables correlate ``Z``
+    with ``deriv_filter`` under scipy-'reflect' padding."""
+    if deriv_filter is None:
+        deriv_filter = DEFAULT_DERIV_FILTER
+    f = np.asarray(deriv_filter, dtype=np.float64)
+    Z = torch.as_tensor(Z)
+    XI = torch.as_tensor(XI, dtype=Z.dtype, device=Z.device)
+    YI = torch.as_tensor(YI, dtype=Z.dtype, device=Z.device)
+    tables = (
+        Z,
+        correlate2d(Z, f.reshape(1, -1), "reflect"),
+        correlate2d(Z, f.reshape(-1, 1), "reflect"),
+        correlate2d(Z, np.outer(f, f), "reflect"),
+    )
+    # the interpolator reads (h, w) point grids: any other shape goes as one row
+    shape = XI.shape
+    val, vx, vy, oob = _hermite_bicubic(tables, YI.reshape(1, -1) - 1.0, XI.reshape(1, -1) - 1.0)
+    val = torch.where(oob, torch.full_like(val, float("nan")), val)
+    return val.reshape(shape), vx.reshape(shape), vy.reshape(shape)
+
+
 def warp_deriv(pre: WarpPrecompute, uv):
     """Warp frame 2 by ``uv`` (..., H, W, 2) and return (It, Ix, Iy): (..., H, W)
     for one channel, else (..., H, W, C)."""

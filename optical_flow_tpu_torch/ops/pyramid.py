@@ -35,6 +35,23 @@ def pyramid_filter(spacing: float) -> np.ndarray:
     return fspecial_gaussian(int(ksize), smooth_sigma)
 
 
+def compute_image_pyramid(img, f: np.ndarray, n_levels: int, ratio: float):
+    """The Gaussian pyramid of an (H, W) or (H, W, C) image, finest first:
+    smooth with the kernel ``f`` (scipy-'reflect'), then resize by ``ratio``."""
+    shapes = pyramid_shapes(img.shape[:2], n_levels, ratio)
+    pyramid = [img]
+    current = img
+    for lvl in range(1, n_levels):
+        current = matlab_imresize_bilinear(correlate2d_multi(current, f, "reflect"), shapes[lvl])
+        pyramid.append(current)
+    return pyramid
+
+
+def pyramid_pair(images, levels: int, spacing: float, gnc_levels: int, gnc_spacing: float):
+    """Both pyramid ladders of an image, (the ``spacing`` one, the GNC one), each a tuple finest first."""
+    return (tuple(build_pyramid(images, levels, spacing)), tuple(build_pyramid(images, gnc_levels, gnc_spacing)))
+
+
 def build_pyramid(images, levels: int, spacing: float, batch_dims: int = 0):
     """List of (H, W[, C]) levels after ``batch_dims`` leading batch axes,
     finest first: smooth (reflect), then resize."""

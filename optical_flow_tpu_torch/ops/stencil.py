@@ -90,6 +90,18 @@ def system_apply(sys: FlowSystem, x):
     return torch.stack([yu, yv], dim=-1)
 
 
+def system_diag(sys: FlowSystem):
+    """diag(A) as (..., H, W, 2): the Jacobi preconditioner."""
+    du = sys.a11 + weighted_laplacian_diag(sys.wu_h, sys.wu_v)
+    dv = sys.a22 + weighted_laplacian_diag(sys.wv_h, sys.wv_v)
+    return torch.stack([du, dv], dim=-1)
+
+
+def system_rhs(sys: FlowSystem):
+    """The right-hand side as (..., H, W, 2)."""
+    return torch.stack([sys.b_u, sys.b_v], dim=-1)
+
+
 def blend_systems(alpha, sys_q: FlowSystem, sys_r: FlowSystem) -> FlowSystem:
     """GNC blend ``alpha * A_quadratic + (1 - alpha) * A_robust``, field by field."""
     return FlowSystem(*[alpha * q + (1.0 - alpha) * r for q, r in zip(sys_q, sys_r)])

@@ -8,6 +8,7 @@ leading batch axis of flows, occlusions and guides is one kernel launch.
 from __future__ import annotations
 
 import numpy as np
+import torch
 
 from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import (
     _weighted_median_lastaxis,
@@ -17,7 +18,14 @@ from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import (
 from optical_flow_tpu_torch.ops.filters import median_filter2d, pad2d
 from optical_flow_tpu_torch.ops.interp import matlab_imresize_bilinear
 
-__all__ = ["_weighted_median_lastaxis", "denoise_color_weighted_medfilt2", "wmedfilt_prepadded"]
+__all__ = ["_weighted_median_lastaxis", "denoise_color_weighted_medfilt2", "weighted_median_1d", "wmedfilt_prepadded"]
+
+
+def weighted_median_1d(w, u):
+    """The weighted median of the values ``u`` with weights ``w`` along the last
+    axis: the first value, in a stable sort, whose cumulative weight reaches
+    half the total (the reference's 1-D helper)."""
+    return _weighted_median_lastaxis(torch.as_tensor(u), torch.as_tensor(w))
 
 
 def denoise_color_weighted_medfilt2(uv, color_images, occ, area_hsz: int, mfsz, sigma_i: float, full_version: bool = False):

@@ -29,7 +29,7 @@ from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply_split, w
 from optical_flow_tpu_torch.solvers.chebyshev import cheby_solve_split, lanczos_bounds_split, zeros_like
 from optical_flow_tpu_torch.solvers.sor import sor_solve
 
-__all__ = ["CG_ALGO", "check_algo", "pcg_solve_split", "pcg_solve_split_gear", "solve_flow_system"]
+__all__ = ["CG_ALGO", "check_algo", "pcg_solve", "pcg_solve_split", "pcg_solve_split_gear", "solve_flow_system"]
 
 # 'classic' | 'gear' | 'cheby'; read on every solve (tests and callers may set it)
 CG_ALGO = os.environ.get("OFTPU_CG_ALGO", "classic")
@@ -41,6 +41,67 @@ def check_algo(algo: str) -> str:
     if algo not in CG_ALGOS:
         raise ValueError(f"Unknown CG algo {algo!r} (OFTPU_CG_ALGO?): expected one of {CG_ALGOS}")
     return algo
+
+
+def _block_jacobi_stacked(diag, a12):
+    """Preconditioner of (..., 2)-stacked state: the exact inverse of the
+    per-pixel 2x2 block [[diag_u, a12], [a12, diag_v]], or the zeroed-inverse
+    diagonal where the block is singular or ``a12`` is None."""
+    zero = torch.zeros((), dtype=diag.dtype, device=diag.device)
+    if a12 is None:
+        dinv = torch.where(torch.abs(diag) > 1e-12, 1.0 / diag, zero)
+        return lambda r: dinv * r
+    split = _block_jacobi_split(diag[..., 0], diag[..., 1], a12)
+    return lambda r: torch.stack(split(r[..., 0], r[..., 1]), dim=-1)
+
+
+def _dot(a, b):
+    return torch.sum(a * b)
+
+
+def pcg_solve(apply_A, b, diag, rtol, maxiter, x0=None, dot=None, sync_axes=(), a12=None):
+    """PCG on ``A x = b`` with (..., 2)-stacked state, block-Jacobi (2x2 per
+    pixel) preconditioned; the JAX package's generic solver.
+
+    ``apply_A`` maps a like-shaped tensor to a like-shaped tensor, ``diag``
+    is diag(A) as (..., 2) (``ops.stencil.system_diag``) and ``a12`` the
+    optional per-pixel u-v coupling (without it the preconditioner is the
+    zeroed-inverse diagonal).  Starts from ``x0`` (default zero) and stops
+    when ``dot(r, r) <= rtol^2 dot(b, b)``, read on the host before every
+    iteration, or at ``maxiter``.  ``dot`` defaults to the sum of the
+    elementwise product.  Plain PyTorch on either device: the flow levels
+    solve through ``solve_flow_system`` and the PCG kernel.
+
+    ``sync_axes`` (the JAX package's mesh axes whose groups must iterate in
+    step under ``shard_map``) must be empty: the port has no ``shard_map``,
+    its row-sharded solves run in ``parallel/dist.py``, and no caller of the
+    JAX package sets it.  A non-empty value raises ``NotImplementedError``.
+    """
+    if sync_axes:
+        raise NotImplementedError("pcg_solve(sync_axes=...): the port has no shard_map; see parallel/dist.py")
+    dot = _dot if dot is None else dot
+    x = torch.zeros_like(b) if x0 is None else x0
+    precond = _block_jacobi_stacked(diag, a12)
+    r = b - apply_A(x)
+    z = precond(r)
+    p = z
+    rz = dot(r, z)
+    tol2 = (rtol**2) * dot(b, b)
+    zero = torch.zeros((), dtype=b.dtype, device=b.device)
+    k = 0
+    while k < maxiter and bool(dot(r, r) > tol2):
+        Ap = apply_A(p)
+        pAp = dot(p, Ap)
+        alpha = torch.where(pAp != 0.0, rz / pAp, zero)
+        x = x + alpha * p
+        r = r - alpha * Ap
+        z = precond(r)
+        rz_new = dot(r, z)
+        beta = torch.where(rz != 0.0, rz_new / rz, zero)
+        p = z + beta * p
+        rz = rz_new
+        k += 1
+    return x
 
 
 def pcg_solve_split_gear(apply_A, bu, bv, du, dv, rtol, maxiter, a12=None, dots3=None, precond=None,

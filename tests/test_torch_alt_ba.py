@@ -79,7 +79,8 @@ def test_alt_ba_level_step_matches_jax(alpha, replacement):
     if replacement:
         uv_p, uvhat_p = sp(cfg_p, t(images), t(uv), t(uvhat), alpha, replacement)
     else:
-        uv_p, uvhat_p = op.compute_flow_base(t(images), t(uv), t(uvhat))
+        op.images = t(images)
+        uv_p, uvhat_p = op.compute_flow_base(t(uv), t(uvhat))
     assert np.abs(n(uv_p) - n(uv_j)).max() <= 1e-9
     assert np.abs(n(uvhat_p) - n(uvhat_j)).max() <= 1e-9
     assert np.abs(n(uvhat_p) - uvhat).max() > 1e-3  # the level moved the fields
@@ -97,7 +98,8 @@ def test_alt_ba_stable_flow_matches_jax(stable_case):
 
     images, uv_j = stable_case
     ope = tight(load_of_method("classic-c-a"), torch.float64, **STABLE)
-    uv_p = ope.compute_flow(t(images)).numpy()
+    ope.images = t(images)
+    uv_p = ope.compute_flow().numpy()
     assert np.abs(uv_p - uv_j).max() <= 1e-6
     assert np.abs(uv_p).max() > 0.5  # a real flow
 
@@ -111,7 +113,9 @@ def test_method_from_state_carries_alt_ba(stable_case):
     assert state["__class__"] == "AltBAOpticalFlow" and state["guard_flow"] == 1e9
     ope = method_from_state({**state, "dtype": "float64"})
     assert ope.rho_couple.name == "charbonnier" and (ope.itersLO, ope.lambda2) == (5, 100.0)
-    uv_p = tight(ope, torch.float64, **STABLE).compute_flow(t(images)).numpy()
+    ope = tight(ope, torch.float64, **STABLE)
+    ope.images = t(images)
+    uv_p = ope.compute_flow().numpy()
     assert np.abs(uv_p - uv_j).max() <= 1e-6
 
 

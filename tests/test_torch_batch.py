@@ -104,8 +104,9 @@ def test_batched_items_equal_their_single_pair_flows(batch, route):
     ope = load_of_method("classic+nl-fast")
     ope.parse_input_parameter({**FLOW_PARAMS, "dtype": torch.float64})
     for k in range(4):
-        color = t(batch["color"][k]) if route == "guided" else None
-        single = ope.compute_flow(t(batch["images"][k]), color).numpy()
+        ope.images = t(batch["images"][k])
+        ope.color_images = t(batch["color"][k]) if route == "guided" else None
+        single = ope.compute_flow().numpy()
         np.testing.assert_allclose(batch[route][k], single, rtol=0, atol=1e-12)
 
 
@@ -288,8 +289,10 @@ def test_guarded_batch_rolls_back_one_item_alone():
     assert torch.equal(guarded[0], free[0]) and torch.equal(guarded[2], free[2]) and bool(guarded[0].any())
     ope = load_of_method("classic+nl-fast")
     ope.parse_input_parameter({**params, "guard_flow": 0.5})
+    ope.color_images = None
     for k in range(3):
-        _equal(guarded[k], ope.compute_flow(t(images[k]), None))
+        ope.images = t(images[k])
+        _equal(guarded[k], ope.compute_flow())
 
 
 # ------------------------------------------------------------------ the batched PCG plans

@@ -165,7 +165,8 @@ def test_classic_c_a_preset_diverges_and_guard_recovers():
         oj.guard_flow = op.guard_flow = guard
         oj.images = jnp.asarray(images, jnp.float32)
         uv_j = np.asarray(oj.compute_flow())
-        uv_p = n(op.compute_flow(t(images, torch.float32)))
+        op.images = t(images, torch.float32)
+        uv_p = n(op.compute_flow())
         for uv in (uv_j, uv_p):
             if guard is None:
                 assert (~np.isfinite(uv)).any() or np.abs(uv).max() > 1e20
@@ -248,5 +249,6 @@ def test_method_from_state_carries_a_guarded_hs():
     uv_j = np.asarray(oj.compute_flow())
     op = method_from_state({**jax_method_state("hs"), "guard_flow": 1e9, "display": False, "dtype": "float64"})
     assert op._level_cfg().guard == 1e9
-    uv_p = n(op.compute_flow(t(images)))
+    op.images = t(images)
+    uv_p = n(op.compute_flow())
     assert np.abs(uv_p - uv_j).max() <= 1e-6 and np.abs(uv_p).max() > 0.5

@@ -104,7 +104,8 @@ def port_single(pair, method, params):
 
     ope = load_of_method(method)
     ope.parse_input_parameter({"display": False, **params, "dtype": torch.float64})
-    return ope.compute_flow(t(pair)).numpy()
+    ope.images = t(pair)
+    return ope.compute_flow().numpy()
 
 
 def jax_flow(a, b, dtype):
