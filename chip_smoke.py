@@ -12,10 +12,11 @@ Phases, each printing its results; any failed check exits non-zero:
    shapes, with both times (CUDA events); for the weighted median also
    window half-sizes 0, 1 and 12, the wide kernel at 13 and 20, the
    coarsest main-path level and a repeat run (determinism); for PCG and
-   ROF both paths (resident at the
-   main path's shapes, streaming above the resident limit), repeat runs,
-   and the streaming kernels (the previous design, unchanged) timed in
-   turns with the resident ones on the same input;
+   ROF both paths (resident at the main path's shapes; above the resident
+   limit the two-sweep streaming PCG and the tiled ROF, bit for bit at
+   2x1080x1920, 2x2160x3840 and the B = 4 batch's 8x388x584), repeat
+   runs, and the large-image kernels timed in turns with the resident ones
+   on the same input;
 3. the main path, ``estimate_flow(rgb1, rgb2, "classic+nl-fast",
    {"display": False, "solver": "pcg"}, device="cuda")`` on RubberWhale
    584x388: finite output, AAE / AEPE against the ground truth within the
@@ -137,11 +138,14 @@ Phases, each printing its results; any failed check exits non-zero:
     seeded uniform 2160x3840 frame and the same frame rolled 2 px, gray (the
     plain median) and RGB (the Lab guide and the weighted median at
     2160x3840), each finite with AEPE <= 0.1 px against (2, 0) on the
-    interior, PCG and ROF on their streaming paths, with levels, CG
-    iterations by level, launches, peak memory and one warm frame's latency;
-    the 4K weighted-median call against its twin (``wmedian_valid``), one 4K
-    streaming PCG solve and the 4K ROF call against theirs, each timed with
-    its bound; ``utils.profiling.trace`` around one frame (the trace names
+    interior (gate 1e-4 px), PCG on its streaming path and ROF on its tiled
+    one, with levels, CG iterations, solves and summed ms by level and path,
+    launches, peak memory and one warm frame's latency beside PR 11's;
+    the 4K weighted-median call against its twin (``wmedian_valid``), the
+    frame's last 2160x3840 and 1080x1920 PCG systems and its ROF call
+    against theirs, each timed with its bound and, where a copy of the
+    previous design's sources sits in the build directory
+    (``previous_library``), in turns with that design's kernels; ``utils.profiling.trace`` around one frame (the trace names
     the three kernels and the annotation) and ``StageTimer``.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
@@ -150,8 +154,11 @@ JSON object lists each kernel with its time, its plain twin's time and
 its bound (the larger of bytes over 3.35 TB/s and operations over the
 67 TFLOP/s float32 peak of an H100 SXM), all from phase 2.  The weighted
 median's and PCG's entries add phases 4 and 5 under ``main_path_*`` and
-``frame_sum_*`` (the 21 calls summed); PCG's and ROF's add the previous
-(streaming) kernel's time on phase 2's input as ``streaming_ms``.  Each
+``frame_sum_*`` (the 21 calls summed); PCG's adds the streaming kernel's
+time on phase 2's input as ``streaming_ms``, ROF's the tiled kernel's as
+``tiled_ms``; two more entries, ``rof_tiled`` and ``cg_stream``, hold the
+large-image kernels at the 4K harness's inputs (``previous_ms``: the
+previous design's time, where built).  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
 of each path driven (counts set to 0 just before it), the paths of phases
 9-19 included (phase 18's summed over the ranks); the 4K calls of phase 19
@@ -350,6 +357,69 @@ def sm_clock_during(torch, fn, seconds=1.0):
         return "not measured"
     clock, clock_max, power = rows[len(rows) // 2]
     return f"{clock:.0f} MHz (max {clock_max:.0f} MHz), {power:.1f} W drawn, median of {len(rows)} samples"
+
+
+PREVIOUS_DIR = os.path.join(REPO, "optical_flow_tpu_torch", "_build", "previous")
+
+
+def previous_library():
+    """The previous design of the two large-image kernels, where a copy of its
+    sources sits in the build directory (``_build/previous/{cg,rof}.cu``,
+    which git ignores; the tree holds only the new design): the streaming
+    PCG ``cg_solve_f32`` (three grid barriers and 34 plane-passes an
+    iteration) and the ROF ``rof_structure_f32`` (one launch an iteration),
+    built with the package's flags into a library of their own.  None where
+    the copy is absent."""
+    import ctypes
+
+    from optical_flow_tpu_torch.ops.cuda import build
+
+    srcs = [os.path.join(PREVIOUS_DIR, f) for f in ("cg.cu", "rof.cu")]
+    if not all(os.path.exists(f) for f in srcs):
+        return None
+    so = os.path.join(PREVIOUS_DIR, "libprevious.so")
+    if not os.path.exists(so):
+        nvcc = build._nvcc()
+        objs = [f[:-3] + ".o" for f in srcs]
+        procs = [subprocess.Popen([nvcc, *build.NVCC_FLAGS, "-c", "-o", o, f], stdout=subprocess.PIPE,
+                                  stderr=subprocess.STDOUT, text=True) for f, o in zip(srcs, objs)]
+        logs = [p.communicate()[0] for p in procs]
+        check(all(p.returncode == 0 for p in procs), "previous design: nvcc failed:\n" + "".join(logs))
+        link = subprocess.run([nvcc, "-gencode", "arch=compute_90a,code=sm_90a", "-shared", "-o", so, *objs],
+                              capture_output=True, text=True)
+        check(link.returncode == 0, f"previous design: link failed: {link.stderr}")
+    lib = ctypes.CDLL(so)
+    P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+    lib.cg_solve_f32.argtypes = [P] * 13 + [I, I, I, F, I, P]
+    lib.rof_structure_f32.argtypes = [P, P, P, I, I, I, F, I, P]
+    lib.cg_solve_f32.restype = lib.rof_structure_f32.restype = ctypes.c_int
+    return lib
+
+
+def previous_cg(torch, lib, planes, rtol, maxiter):
+    """The previous streaming PCG on nine (H, W) float32 CUDA planes: (H, W, 2)."""
+    H, W = planes[0].shape
+    dev = planes[0].device
+    x = torch.empty((H, W, 2), dtype=torch.float32, device=dev)
+    work = torch.empty((11, H, W), dtype=torch.float32, device=dev)
+    partials = torch.empty(4 * 2048, dtype=torch.float64, device=dev)
+    iters = torch.zeros(2, dtype=torch.int32, device=dev)
+    err = lib.cg_solve_f32(*[p.data_ptr() for p in planes], x.data_ptr(), work.data_ptr(), partials.data_ptr(),
+                           iters.data_ptr(), 1, H, W, float(rtol) ** 2, int(maxiter),
+                           torch.cuda.current_stream(dev).cuda_stream)
+    check(err == 0, f"previous cg_solve_f32: cudaError_t {err}")
+    return x, iters
+
+
+def previous_rof(torch, lib, x, theta, n_iters):
+    """The previous ROF (one launch an iteration) on a (B, H, W) float32 CUDA tensor."""
+    B, H, W = x.shape
+    p = torch.zeros((4, B, H, W), dtype=torch.float32, device=x.device)
+    out = torch.empty_like(x)
+    err = lib.rof_structure_f32(x.data_ptr(), p.data_ptr(), out.data_ptr(), B, H, W, float(theta), int(n_iters),
+                                torch.cuda.current_stream(x.device).cuda_stream)
+    check(err == 0, f"previous rof_structure_f32: cudaError_t {err}")
+    return out
 
 
 def bound(ops, nbytes):
@@ -634,7 +704,7 @@ def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
     limits = device_limits(dev)
     random_sys = _random_flow_system(torch, dev, rng, 388, 584)
     irls_sys = FlowSystem(*[f.contiguous() for f in _irls_system(torch, dev, rgb1, rgb2, tu, tv)])
-    # above the resident limit: the streaming kernel (the previous design)
+    # above the resident limit: the streaming kernel (two sweeps an iteration)
     big_sys = _random_flow_system(torch, dev, rng, 1200, 1600)
     result = None
     for name, sysm, rtol, maxiter, path in (("random", random_sys, 1e-6, 1000, "resident"),
@@ -657,15 +727,15 @@ def check_cg(torch, dev, card, rng, rgb1, rgb2, tu, tv):
         check(same, f"cg {name} {H}x{W}: two runs differ")
         if name == "irls":
             planes = list(sysm)
-            streaming = cg_kernel.CgPlan("streaming")
-            # the previous kernel and the resident one in turns: s, r, r, s
+            streaming = cg_kernel.streaming_plan(H, W, limits[0])
+            # the streaming kernel and the resident one in turns: s, r, r, s
             t = [cuda_ms(torch, lambda p=p: cg_kernel.launch(planes, rtol, maxiter, p), 10)
                  for p in (streaming, plan, plan, streaming)]
             ms, streaming_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
             plain_ms = cuda_ms(torch, lambda: cg_kernel.cg_solve_plain(sysm, rtol, maxiter), 3)
             b = cg_bound(H, W, it_k)
             print(f"cg irls {H}x{W} rtol 1e-3 ({it_k} iterations): resident {t[1]:.3f} / {t[2]:.3f} ms "
-                  f"({1e3 * ms / it_k:.2f} us an iteration), streaming (previous design) {t[0]:.3f} / {t[3]:.3f} ms "
+                  f"({1e3 * ms / it_k:.2f} us an iteration), streaming {t[0]:.3f} / {t[3]:.3f} ms "
                   f"({1e3 * streaming_ms / it_k:.2f} us), plain {plain_ms:.3f} ms, "
                   f"bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
             check(ms < streaming_ms, "cg: the resident kernel is not faster than the streaming one at 388x584")
@@ -748,7 +818,11 @@ def check_rof(torch, dev, card, rgb1, rgb2):
              ("ragged bands", torch.as_tensor(rng.uniform(-1, 1, (2, 33, 47)), dtype=f32, device=dev), "resident", 0.0),
              ("ragged bands", torch.as_tensor(rng.uniform(-1, 1, (2, 100, 47)), dtype=f32, device=dev), "resident", 0.0),
              ("above the resident limit", torch.as_tensor(rng.uniform(-1, 1, (2, 1080, 1920)), dtype=f32, device=dev),
-              "streaming", 1e-6)]
+              "tiled", 0.0),
+             ("the 4K harness's size", torch.as_tensor(rng.uniform(-1, 1, (2, 2160, 3840)), dtype=f32, device=dev),
+              "tiled", 0.0),
+             ("the B = 4 batch's images", torch.as_tensor(rng.uniform(-1, 1, (8, 388, 584)), dtype=f32, device=dev),
+              "tiled", 0.0)]
     for name, x, path, limit in cases:
         plan = rof_kernel.rof_plan(*x.shape, *limits)
         check(plan.path == path, f"rof {tuple(x.shape)}: path {plan.path}, expected {path}")
@@ -756,24 +830,27 @@ def check_rof(torch, dev, card, rgb1, rgb2):
         ref = rof_structure_2d(x, 1.0 / 8, 100)
         torch.cuda.synchronize()
         err = float((out - ref).abs().max())
-        print(f"rof {'x'.join(map(str, x.shape))} {name}, 100 iterations ({plan.path}): max|d| {err:.3e} (limit {limit:g})")
-        check(err <= limit, f"ROF kernel differs from its twin at {tuple(x.shape)}")
+        print(f"rof {'x'.join(map(str, x.shape))} {name}, 100 iterations ({plan.path}, {rof_kernel.device_launches(plan)} "
+              f"device launches): max|d| {err:.3e} (limit {limit:g}), torch.equal {torch.equal(out, ref)}")
+        check(err <= limit and (limit > 0 or torch.equal(out, ref)), f"ROF kernel differs from its twin at {tuple(x.shape)}")
         if x is im:
             result_err = err
+        del out, ref
+    del cases
     plan = rof_kernel.rof_plan(*im.shape, *limits)
-    streaming = rof_kernel.RofPlan("streaming")
-    # the previous kernel and the resident one in turns: s, r, r, s
-    t = [cuda_ms(torch, lambda p=p: rof_kernel.launch(im, 1.0 / 8, 100, p), 10) for p in (streaming, plan, plan, streaming)]
-    ms, streaming_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+    tiled = rof_kernel.tiled_plan(100)
+    # the tiled kernel and the resident one in turns: t, r, r, t
+    t = [cuda_ms(torch, lambda p=p: rof_kernel.launch(im, 1.0 / 8, 100, p), 10) for p in (tiled, plan, plan, tiled)]
+    ms, tiled_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
     plain_ms = cuda_ms(torch, lambda: rof_structure_2d(im, 1.0 / 8, 100), 3)
     # per pixel and iteration ~28 operations (the primal at three points 15,
     # the gradient 2, the dual step 4, the norm 5, the division 2), then 5 for
     # the final primal; bytes: the image in, the structure out
     n = im.numel()
     b = bound(n * (28 * 100 + 5), 8 * n)
-    print(f"rof 2x388x584: resident {t[1]:.3f} / {t[2]:.3f} ms, streaming (previous design) {t[0]:.3f} / {t[3]:.3f} ms, "
+    print(f"rof 2x388x584: resident {t[1]:.3f} / {t[2]:.3f} ms, tiled {t[0]:.3f} / {t[3]:.3f} ms, "
           f"plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
-    return {"max_abs_err": result_err, "ms": ms, "plain_ms": plain_ms, **b, "streaming_ms": streaming_ms}
+    return {"max_abs_err": result_err, "ms": ms, "plain_ms": plain_ms, **b, "tiled_ms": tiled_ms}
 
 
 def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
@@ -792,7 +869,7 @@ def phase_main_path(torch, dev, card, rgb1, rgb2, tu, tv):
     torch.cuda.synchronize()
     launches = {"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches}
     by_path = {"cg resident": cg_kernel.launches_resident, "cg streaming": cg_kernel.launches_streaming,
-               "rof resident": rof_kernel.launches_resident, "rof streaming": rof_kernel.launches_streaming}
+               "rof resident": rof_kernel.launches_resident, "rof tiled": rof_kernel.launches_tiled}
     cg_iters = cg_kernel.iteration_counts(uv.device)[1]
 
     uv_np = uv.cpu().numpy()
@@ -884,8 +961,8 @@ def phase_cg_levels(torch, dev, card, recorded):
         it_k = cg_kernel.iteration_counts(dev)[0]
         again = cg_kernel.cg_solve(sysm, rtol, maxiter)
         err, limit, res, it_t = cg_compare(torch, sysm, rtol, maxiter, x_k, it_k)
-        # the previous (streaming) kernel on the same system, for comparison
-        x_s = cg_kernel.launch([f.contiguous() for f in sysm], rtol, maxiter, cg_kernel.CgPlan("streaming"))
+        # the streaming kernel on the same system, for comparison
+        x_s = cg_kernel.launch([f.contiguous() for f in sysm], rtol, maxiter, cg_kernel.streaming_plan(H, W, limits[0]))
         it_s = cg_kernel.iteration_counts(dev)[0]
         err_s = cg_compare(torch, sysm, rtol, maxiter, x_s, it_s)[0]
         # the twin sums in float32, the kernels in double: the twin with
@@ -1034,19 +1111,28 @@ def no_plain_twins():
 
 
 @contextlib.contextmanager
-def solve_log(torch, dev, keep=0):
+def solve_log(torch, dev, keep=0, keep_shapes=()):
     """Within the block, each PCG call appends (level shape, each item's
     iterations, each item's right-hand side non-zero) to ``log["cg"]`` (a
-    sync a call), with clones of the last ``keep`` systems in ``log["kept"]``,
-    and each SOR call (level shape, each item's sweeps) to ``log["sor"]``."""
+    sync a call) and its device time (CUDA events) to ``log["cg_ms"]``,
+    with clones of the last ``keep`` systems in ``log["kept"]`` and of the
+    last system of each shape of ``keep_shapes`` in ``log["by_shape"]``, and
+    each SOR call (level shape, each item's sweeps) to ``log["sor"]``."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel
     from optical_flow_tpu_torch.solvers import cg as cg_solvers
 
-    log = {"cg": [], "sor": [], "kept": []}
+    log = {"cg": [], "cg_ms": [], "sor": [], "kept": [], "by_shape": {}}
     call, sor_call = cg_solvers.cg_solve, cg_solvers.sor_solve
 
     def recording(sysm, rtol, maxiter):
+        start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+        start.record()
         x = call(sysm, rtol, maxiter)
+        end.record()
+        end.synchronize()
+        log["cg_ms"].append(start.elapsed_time(end))
+        if tuple(sysm.a11.shape[-2:]) in keep_shapes:
+            log["by_shape"][tuple(sysm.a11.shape[-2:])] = (type(sysm)(*[f.clone() for f in sysm]), rtol, maxiter)
         live = ((sysm.b_u != 0) | (sysm.b_v != 0)).flatten(-2).any(-1).reshape(-1).tolist()
         log["cg"].append((tuple(sysm.a11.shape[-2:]), cg_kernel.item_iterations(dev), live))
         if keep:
@@ -1086,7 +1172,7 @@ def reset_counts():
     from optical_flow_tpu_torch.parallel import dist
 
     wmedian_kernel.launches = wmedian_kernel.items = 0
-    rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_streaming = 0
+    rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_tiled = 0
     cg_kernel.reset_stats()
     dist.reset_counts()
 
@@ -1098,7 +1184,7 @@ def read_counts():
     return ({"wmedian": wmedian_kernel.launches, "cg": cg_kernel.launches, "rof": rof_kernel.launches},
             {"cg resident": cg_kernel.launches_resident, "rof resident": rof_kernel.launches_resident,
              "cg resident one item at a time": cg_kernel.launches_resident_per_item,
-             "cg streaming": cg_kernel.launches_streaming, "rof streaming": rof_kernel.launches_streaming,
+             "cg streaming": cg_kernel.launches_streaming, "rof tiled": rof_kernel.launches_tiled,
              "cg items": cg_kernel.items})
 
 
@@ -1443,7 +1529,7 @@ def _batch_of(pairs):
 
 def check_recorded_rof(torch, dev, card, recorded, label):
     """The one ROF call a batch recorded, kernel against twin on its own input
-    (resident bit for bit, streaming within 1e-6, as phase 2 requires)."""
+    (bit for bit on either path, as phase 2 requires)."""
     from optical_flow_tpu_torch.ops.cuda import rof_kernel
     from optical_flow_tpu_torch.ops.cuda.build import device_limits
     from optical_flow_tpu_torch.ops.cuda.rof_kernel import rof_structure, rof_structure_2d
@@ -1455,11 +1541,11 @@ def check_recorded_rof(torch, dev, card, recorded, label):
     ref = rof_structure_2d(im, theta, n_iters)
     torch.cuda.synchronize()
     err = float((out - ref).abs().max())
-    limit = 0.0 if plan.path == "resident" else 1e-6
     ms = cuda_ms(torch, lambda: rof_structure(im, theta, n_iters), 5)
-    print(f"rof {label}: {'x'.join(map(str, im.shape))} ({plan.path}), {n_iters} iterations: max|d| against the twin "
-          f"{err:.3e} (limit {limit:g}), {ms:.3f} ms  [{card}]")
-    check(err <= limit, f"{label}: the ROF kernel differs from its twin on the batch's input")
+    print(f"rof {label}: {'x'.join(map(str, im.shape))} ({plan.path}, {rof_kernel.device_launches(plan)} device "
+          f"launches), {n_iters} iterations: max|d| against the twin {err:.3e} (bit for bit required), {ms:.3f} ms  "
+          f"[{card}]")
+    check(torch.equal(out, ref), f"{label}: the ROF kernel differs from its twin on the batch's input")
     return {"rof_path": plan.path, "rof_max_abs_err": err, "rof_ms": ms}
 
 
@@ -1507,6 +1593,7 @@ def phase_batch(torch, dev, card, pairs):
     check(launches == {"wmedian": 21, "cg": cg_expected, "rof": 1} and by_path["cg items"] == 21 * B
           and by_path["cg resident"] == cg_expected and by_path["cg resident one item at a time"] == per_item,
           f"batch: unexpected launches {launches}, {by_path}")
+    LARGE_IMAGE_LAUNCHES["batch"] = (by_path["rof tiled"], by_path["cg streaming"])
 
     uv_np = uv.cpu().numpy()
     check(uv_np.shape == (B, 388, 584, 2) and np.isfinite(uv_np).all(), f"batch: flow {uv_np.shape} not finite")
@@ -1632,13 +1719,14 @@ def phase_scaling(torch, dev, card, pairs):
             torch.cuda.synchronize()
             ev_ms.append(start.elapsed_time(end))
         ms = statistics.median(ev_ms)
-        rof_path = rof_kernel.rof_plan(2 * B, 388, 584, *device_limits(dev)).path
+        rof_plan = rof_kernel.rof_plan(2 * B, 388, 584, *device_limits(dev))
+        rof_path = rof_plan.path
         print(f"scaling: batch B {B}: {ms:.2f} ms (runs {', '.join(f'{x:.2f}' for x in ev_ms)}), {ms / B:.2f} ms a pair; "
               f"{B} single frames {B * single_ms:.2f} ms; ratio {B * single_ms / ms:.3f}; ROF on {2 * B} images "
               f"{rof_path}; PCG device launches {cg_launches}  [{card}]")
         out[f"batch{B}_ms"] = ms
     prof = phase_profile(torch, dev, card, None, None, out["batch4_ms"], "batch B 4", run=run,
-                         rof_device_launches=101 if rof_path == "streaming" else 1, cg_device_launches=cg_launches)
+                         rof_device_launches=rof_kernel.device_launches(rof_plan), cg_device_launches=cg_launches)
     return out, prof
 
 
@@ -2370,7 +2458,13 @@ def phase_multiprocess(torch, card, tu, tv, sharded_ref, batch_ref):
 FRAME_4K = (2160, 3840)
 SHIFT_4K = 2
 INTERIOR_4K = np.s_[16:-16, 18:-16]
-GATE_4K_AEPE = 0.1
+GATE_4K_AEPE = 1e-4
+# (tiled ROF, streaming PCG) wrapper launches in the counted frames of the
+# paths that run them: the B = 4 batch (phase 12) and the 4K frames (phase 19)
+LARGE_IMAGE_LAUNCHES = {}
+# the 4K frames' CUDA-event times before the large-image kernels' redesign
+# (PERF.md, PR 11's calls; gray, RGB), printed beside this run's
+PR11_FRAME_4K_MS = {False: "895.68-933.94", True: "674.98-796.57"}
 BASE_MEAN_DIFF = 1e-3  # compute_flow_base on the card against the CPU twins: mean |d|
 
 
@@ -2442,6 +2536,8 @@ def phase_frame_4k(torch, dev, card, label, rgb):
     frames give no colour guide (the plain 5x5 median); RGB ones go through
     ``preprocess_color_pair`` and the Lab guide (the weighted median)."""
     from optical_flow_tpu_torch.config import load_of_method
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel
+    from optical_flow_tpu_torch.ops.cuda.build import device_limits
     from optical_flow_tpu_torch.utils.compat import preprocess_color_pair
 
     rng = np.random.default_rng(SEED)
@@ -2454,7 +2550,8 @@ def phase_frame_4k(torch, dev, card, label, rgb):
                                                              torch.as_tensor(im2, device=dev))
     else:
         ope.images = torch.stack([torch.as_tensor(base, device=dev), torch.as_tensor(im2, device=dev)], 2)
-    with solve_log(torch, dev, keep=1) as log, _last_full_size_calls(torch, FRAME_4K) as kept:
+    with solve_log(torch, dev, keep=1, keep_shapes=((1080, 1920),)) as log, \
+            _last_full_size_calls(torch, FRAME_4K) as kept:
         t0 = time.perf_counter()
         with torch.no_grad():
             ope.compute_flow()
@@ -2489,22 +2586,49 @@ def phase_frame_4k(torch, dev, card, label, rgb):
           + "; ".join(f"{h}x{w}: {k}, {i}" for (h, w), k, i in runs))
     print(f"{label}: one warm frame {ev_ms:.2f} ms (CUDA events), {host_ms:.2f} ms (host clock); warm-up frame "
           f"{warm_s:.2f} s (one sync a solve); peak memory {peak_gb:.3f} GB (max_memory_allocated)  [{card}]")
+    print(f"{label}: the same frame before the large-image kernels' redesign: {PR11_FRAME_4K_MS[rgb]} ms "
+          "(PERF.md, PR 11's calls on an H100 80GB HBM3, 700 W; another call)")
+    # each level's solves in the warm-up frame (a sync a solve), by the path cg_plan gives them
+    limits = device_limits(dev)
+    per_level = []
+    for (shape, its, _), ms in zip(log["cg"], log["cg_ms"]):
+        path = cg_kernel.cg_plan(1, *shape, *limits).path
+        if per_level and per_level[-1]["shape"] == list(shape):
+            row = per_level[-1]
+            row["solves"] += 1
+            row["iterations"] += its[0]
+            row["ms"] += ms
+        else:
+            per_level.append({"shape": list(shape), "path": path, "solves": 1, "iterations": its[0], "ms": ms})
+    stream = [r for r in per_level if r["path"] == "streaming"]
+    print(f"{label}: PCG solves by level in the warm-up frame (shape: path, solves, iterations, summed ms, us an "
+          "iteration): " + "; ".join(f"{r['shape'][0]}x{r['shape'][1]}: {r['path']}, {r['solves']}, {r['iterations']}, "
+                                    f"{r['ms']:.3f}, {1e3 * r['ms'] / max(r['iterations'], 1):.2f}" for r in per_level))
+    print(f"{label}: streaming solves {sum(r['solves'] for r in stream)}, iterations "
+          f"{sum(r['iterations'] for r in stream)}, {sum(r['ms'] for r in stream):.3f} ms of the frame's "
+          f"{sum(log['cg_ms']):.3f} ms of PCG  [{card}]")
     check(aepe <= GATE_4K_AEPE, f"{label}: AEPE {aepe:.4f} px against the known answer, gate {GATE_4K_AEPE}")
     check(launches["cg"] == len(solves) and launches["rof"] == 1 and n_wm == (len(solves) if rgb else 0),
           f"{label}: unexpected launches {launches} ({len(solves)} PCG solves in the warm-up frame)")
-    check(by_path["cg streaming"] > 0 and by_path["rof streaming"] == 1,
-          f"{label}: the 4K solves or the ROF call did not take the streaming path: {by_path}")
+    check(by_path["cg streaming"] > 0 and by_path["rof tiled"] == 1,
+          f"{label}: the 4K solves or the ROF call did not take the streaming / tiled path: {by_path}")
     check(cg_iters == sum(i for _, i in solves), f"{label}: CG iterations differ between two frames")
+    LARGE_IMAGE_LAUNCHES[label] = (by_path["rof tiled"], by_path["cg streaming"])
+    kept["cg"] = log["kept"][0]
+    kept["cg 1080p"] = log["by_shape"].get((1080, 1920))
     return launches, {"frame_ms": ev_ms, "host_ms": host_ms, "peak_gb": peak_gb, "aepe": aepe,
-                      "levels": ope.pyramid_levels}, kept, log["kept"][0]
+                      "levels": ope.pyramid_levels, "pcg_by_level": per_level}, kept
 
 
-def check_kernels_4k(torch, dev, card, kept, cg_system):
+def check_kernels_4k(torch, dev, card, kept):
     """The 4K frame's full-size weighted-median call against its twin
-    (``wmedian_valid``) and its time; one 4K streaming PCG solve (the frame's
-    last system, held as phase 7 holds classic++'s) and the frame's ROF call
-    against their twins, with their times (CUDA events) and bounds, as phase
-    2 computes them."""
+    (``wmedian_valid``) and its time; the frame's last 2160x3840 PCG system
+    and its last 1080x1920 one on the streaming kernel, and its ROF call on
+    the tiled kernel, against their twins (PCG within phase 2's limit, ROF
+    bit for bit), with their times (CUDA events) and bounds, as phase 2
+    computes them; where the previous design's sources are present
+    (``previous_library``), its kernels on the same inputs in turns with the
+    new ones (previous, new, new, previous)."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel
     from optical_flow_tpu_torch.ops.cuda.build import device_limits
     from optical_flow_tpu_torch.ops.cuda.rof_kernel import rof_structure, rof_structure_2d
@@ -2527,46 +2651,79 @@ def check_kernels_4k(torch, dev, card, kept, cg_system):
                       "frame4k_max_abs_err": float((wm - ref).abs().max())}
     del wm, ref
 
-    sysm, rtol, maxiter = cg_system
-    H, W = sysm.a11.shape
-    plan = cg_kernel.cg_plan(1, H, W, *device_limits(dev))
-    x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
-    it_k = cg_kernel.iteration_counts(dev)[0]
-    x_t, it_t = cg_twin(torch, sysm, rtol, maxiter)
-    x_d = cg_twin(torch, sysm, rtol, maxiter, sums=torch.float64)[0]
-    limit = 1e-5 * max(float(x_t.abs().max()), 1.0)
-    err, err_d = (float((x_k - x).abs().max()) for x in (x_t, x_d))
-    res, res_t = relative_residual(torch, sysm, x_k), relative_residual(torch, sysm, x_t)
-    ms = cuda_ms(torch, lambda: cg_kernel.cg_solve(sysm, rtol, maxiter), 2)
-    plain_ms = cuda_ms(torch, lambda: cg_kernel.cg_solve_plain(sysm, rtol, maxiter), 1)
-    b = cg_bound(H, W, it_k)
-    print(f"cg 4K system {H}x{W} rtol {rtol:g} ({plan.path}): iterations kernel {it_k} / plain {it_t}; max|dx| / limit "
-          f"{err / limit:.3f} against the twin, {err_d / limit:.3f} against it with double sums; relative residual "
-          f"kernel {res:.3e}, plain twin {res_t:.3e}; kernel {ms:.3f} ms ({1e3 * ms / max(it_k, 1):.2f} us an iteration), plain {plain_ms:.3f} "
-          f"ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
-    check(plan.path == "streaming", f"cg 4K: path {plan.path}")
-    # as phase 7 holds classic++'s rtol-1e-7 solves: float32 stops the true
-    # residual short of 1e-7, so 10 x rtol or twice the float32 twin's
-    check(min(err, err_d) <= limit and res <= max(10 * rtol, 2 * res_t),
-          f"cg 4K system: max|dx| {err:.3e} / {err_d:.3e} (limit {limit:.3e}), residual {res:.3e} (twin {res_t:.3e})")
-    out["cg"] = {"frame4k_ms": ms, "frame4k_plain_ms": plain_ms, "frame4k_bound_ms": b["bound_ms"],
-                 "frame4k_iterations": it_k, "frame4k_max_abs_err": min(err, err_d)}
+    prev = previous_library()
+    print("previous design (PR 11's cg.cu / rof.cu): " + ("built from the copy in the build directory" if prev else
+          "sources absent; compare with PERF.md's PR 11 numbers (another call)"))
+    out["cg"] = {}
+    for tag, system in (("frame4k", kept["cg"]), ("frame1080p", kept["cg 1080p"])):
+        check(system is not None, f"cg: the 4K frame kept no {tag} system")
+        sysm, rtol, maxiter = system
+        H, W = sysm.a11.shape
+        plan = cg_kernel.cg_plan(1, H, W, *device_limits(dev))
+        x_k = cg_kernel.cg_solve(sysm, rtol, maxiter)
+        it_k = cg_kernel.iteration_counts(dev)[0]
+        x_t, it_t = cg_twin(torch, sysm, rtol, maxiter)
+        x_d = cg_twin(torch, sysm, rtol, maxiter, sums=torch.float64)[0]
+        limit = 1e-5 * max(float(x_t.abs().max()), 1.0)
+        err, err_d = (float((x_k - x).abs().max()) for x in (x_t, x_d))
+        res, res_t = relative_residual(torch, sysm, x_k), relative_residual(torch, sysm, x_t)
+        planes = list(sysm)
+        new = lambda: cg_kernel.launch(planes, rtol, maxiter, plan)  # noqa: E731
+        if prev is not None:
+            x_p, it_p = previous_cg(torch, prev, planes, rtol, maxiter)
+            it_p = int(it_p[1])
+            old = lambda: previous_cg(torch, prev, planes, rtol, maxiter)  # noqa: E731
+            t = [cuda_ms(torch, f, 2) for f in (old, new, new, old)]
+            ms, prev_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+            turns = (f"; previous design {it_p} iterations, max|dx| / limit {float((x_p - x_t).abs().max()) / limit:.3f}, "
+                     f"in turns previous / new / new / previous {' / '.join(f'{v:.3f}' for v in t)} ms: "
+                     f"{1e3 * prev_ms / max(it_p, 1):.2f} against {1e3 * ms / max(it_k, 1):.2f} us an iteration")
+        else:
+            ms, prev_ms, turns = cuda_ms(torch, new, 2), None, ""
+        plain_ms = cuda_ms(torch, lambda: cg_kernel.cg_solve_plain(sysm, rtol, maxiter), 1)
+        b = cg_bound(H, W, it_k)
+        floor_us = 1e6 * cg_kernel.STREAM_PLANE_PASSES * 4 * H * W / PEAK_BYTES  # an iteration
+        print(f"cg {tag} system {H}x{W} rtol {rtol:g} ({plan.path}, {plan.blocks} blocks, tiles of {plan.rows} rows): "
+              f"iterations kernel {it_k} / plain {it_t}; max|dx| / limit {err / limit:.3f} against the twin, "
+              f"{err_d / limit:.3f} against it with double sums; relative residual kernel {res:.3e}, plain twin "
+              f"{res_t:.3e}; kernel {ms:.3f} ms ({1e3 * ms / max(it_k, 1):.2f} us an iteration; the schedule's "
+              f"{cg_kernel.STREAM_PLANE_PASSES} plane-passes an iteration at 3.35 TB/s: {floor_us:.2f} us){turns}; plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+        check(plan.path == "streaming", f"cg {tag}: path {plan.path}")
+        # as phase 7 holds classic++'s rtol-1e-7 solves: float32 stops the true
+        # residual short of 1e-7, so 10 x rtol or twice the float32 twin's
+        check(min(err, err_d) <= limit and res <= max(10 * rtol, 2 * res_t),
+              f"cg {tag} system: max|dx| {err:.3e} / {err_d:.3e} (limit {limit:.3e}), residual {res:.3e} "
+              f"(twin {res_t:.3e})")
+        out["cg"].update({f"{tag}_ms": ms, f"{tag}_plain_ms": plain_ms, f"{tag}_bound_ms": b["bound_ms"],
+                          f"{tag}_bound_by": b["bound_by"],
+                          f"{tag}_iterations": it_k, f"{tag}_max_abs_err": min(err, err_d),
+                          f"{tag}_us_an_iteration": 1e3 * ms / max(it_k, 1), f"{tag}_previous_ms": prev_ms})
+        del x_k, x_t, x_d, planes
 
     im, theta, n_iters = kept["rof"]
-    plan = rof_kernel.rof_plan(*im.shape, *device_limits(dev))
+    plan = rof_kernel.rof_plan(*im.shape, *device_limits(dev), n_iters)
     r_k, r_t = rof_structure(im, theta, n_iters), rof_structure_2d(im, theta, n_iters)
     torch.cuda.synchronize()
+    same = torch.equal(r_k, r_t)
     err = float((r_k - r_t).abs().max())
-    ms = cuda_ms(torch, lambda: rof_structure(im, theta, n_iters), 3)
+    new = lambda: rof_kernel.launch(im, theta, n_iters, plan)  # noqa: E731
+    if prev is not None:
+        old = lambda: previous_rof(torch, prev, im, theta, n_iters)  # noqa: E731
+        t = [cuda_ms(torch, f, 3) for f in (old, new, new, old)]
+        ms, prev_ms = (t[1] + t[2]) / 2, (t[0] + t[3]) / 2
+        turns = f"; in turns previous / new / new / previous {' / '.join(f'{v:.3f}' for v in t)} ms"
+    else:
+        ms, prev_ms, turns = cuda_ms(torch, new, 3), None, ""
     plain_ms = cuda_ms(torch, lambda: rof_structure_2d(im, theta, n_iters), 1)
     n = im.numel()
     b = bound(n * (28 * n_iters + 5), 8 * n)  # as phase 2
-    print(f"rof 4K input {'x'.join(map(str, im.shape))} ({plan.path}), {n_iters} iterations: max|d| against the twin "
-          f"{err:.3e} (limit 1e-6); kernel {ms:.3f} ms, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms "
-          f"({b['bound_by']})  [{card}]")
-    check(plan.path == "streaming" and err <= 1e-6, f"rof 4K: path {plan.path}, max|d| {err:.3e}")
+    print(f"rof 4K input {'x'.join(map(str, im.shape))} ({plan.path}, halo {plan.halo}, tiles {plan.tile}, "
+          f"{plan.passes} passes), {n_iters} iterations: torch.equal to the twin {same} (max|d| {err:.3e}); kernel "
+          f"{ms:.3f} ms{turns}, plain {plain_ms:.3f} ms, bound {b['bound_ms']:.4f} ms ({b['bound_by']})  [{card}]")
+    check(plan.path == "tiled" and same, f"rof 4K: path {plan.path}, max|d| {err:.3e}")
     out["rof"] = {"frame4k_ms": ms, "frame4k_plain_ms": plain_ms, "frame4k_bound_ms": b["bound_ms"],
-                  "frame4k_max_abs_err": err}
+                  "frame4k_bound_by": b["bound_by"], "frame4k_max_abs_err": err, "frame4k_previous_ms": prev_ms,
+                  "frame4k_device_launches": rof_kernel.device_launches(plan)}
     return out
 
 
@@ -2678,10 +2835,10 @@ def phase_method_objects(torch, dev, card, rgb1, rgb2, tu, tv, main_uv, finest_c
 
     frames, kernels_4k = {}, {}
     for label, rgb in (("4K gray", False), ("4K rgb", True)):
-        by_path[label], frames[label], kept, cg_system = phase_frame_4k(torch, dev, card, label, rgb)
+        by_path[label], frames[label], kept = phase_frame_4k(torch, dev, card, label, rgb)
         if rgb:
-            kernels_4k = check_kernels_4k(torch, dev, card, kept, cg_system)
-        del kept, cg_system
+            kernels_4k = check_kernels_4k(torch, dev, card, kept)
+        del kept
 
     # the traced frame runs in a fresh process: in this one, minutes old,
     # the CUDA profiler drops a few more kernels from its record with every
@@ -2807,6 +2964,17 @@ def main():
          **results[name], "library_ms": None}
         for name, (src, rep) in meta.items()
     ]
+    # the large-image kernels on their own lines, with the 4K harness's inputs
+    for name, key, (src, rep), idx in (
+            ("rof_tiled", "rof", ("optical_flow_tpu_torch/csrc/rof.cu", "optical_flow_tpu/ops/pallas/rof_kernel.py:199"), 0),
+            ("cg_stream", "cg", ("optical_flow_tpu_torch/csrc/cg.cu", "optical_flow_tpu/ops/pallas/cg_kernel.py:160"), 1)):
+        r = results[key]
+        kernels.append({"name": name, "route": "cuda", "source": src, "replaces": rep,
+                        "launches": sum(v[idx] for v in LARGE_IMAGE_LAUNCHES.values()),
+                        "launches_by_path": {path: v[idx] for path, v in LARGE_IMAGE_LAUNCHES.items()},
+                        "max_abs_err": r["frame4k_max_abs_err"], "ms": r["frame4k_ms"], "plain_ms": r["frame4k_plain_ms"],
+                        "bound_ms": r["frame4k_bound_ms"], "bound_by": r["frame4k_bound_by"], "library_ms": None,
+                        "previous_ms": r["frame4k_previous_ms"]})
     print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof, "families": family_latency,
                                           "sharded": sharded_latency,
                                           "multi_device": {"sharded_host_ms": family_ms, **pipeline_ms},

@@ -3,11 +3,11 @@
 // (optical_flow_tpu/ops/pallas/cg_kernel.py), whose idea is residency: every
 // plane stays in fast memory for the whole solve.
 //
-// Bound on the H100: latency and synchronisation, not arithmetic.  An
-// iteration does ~60 flops per pixel (~0.2 us at 388x584 at the float32
-// peak), but it needs two grid-wide sums, and each costs a grid barrier and
-// a round trip to L2 (~2.4 us together, measured on 132 one-row bands).
-// Two kernels:
+// Bound on the H100: latency and synchronisation at the main path's sizes,
+// device memory above them.  An iteration does ~60 flops per pixel (~0.2 us
+// at 388x584 at the float32 peak), but it needs two grid-wide sums, and
+// each costs a grid barrier and a round trip to L2 (~2.4 us together,
+// measured on 132 one-row bands).  Two kernels:
 //
 // * cg_resident (the main path's sizes): one block per SM owns a band of
 //   rows.  p, the coefficients and the preconditioner of the band stay in
@@ -21,8 +21,21 @@
 //   float expression on the owner's bits, so equal to the owner's p bit for
 //   bit).  A system that one block holds runs as one block with
 //   __syncthreads only.
-// * cg_kernel (too large to stay on chip): a grid-stride loop over planes in
-//   global memory (L2), three grid barriers an iteration.
+// * cg_stream (too large to stay on chip): planes in device memory, two
+//   sweeps and two grid barriers an iteration, 28 plane-passes (a plane
+//   read or written once).  Sweep 1, with alpha and beta of the iteration
+//   before: on row tiles of kSwCols columns and their one-pixel ring,
+//   z = M^-1 r recomputed from r and the seven coefficient planes that A p
+//   reads anyway, p = z + beta p_old (p double-buffered by the iteration's
+//   parity: a neighbour reads p_old on its ring while this tile writes p),
+//   the deferred x += alpha p_old, A p and the share of p.Ap; reads r,
+//   p_old, x and the coefficients (13 planes), writes p, x and A p (6).
+//   Sweep 2, with alpha: r -= alpha A p, z from the three preconditioner
+//   planes written once at setup, the shares of r.z and r.r; reads 7,
+//   writes r (2).  A last pass applies the final x += alpha p.  Every
+//   per-pixel expression is the twin's, in its order, so the deferral and
+//   the recomputed z change no pixel's bits; only the sums' partition
+//   differs from the twin's.
 //
 // Every block reduces the per-block partials itself, in one fixed order (no
 // float atomics), so every block takes the same branch and the result
@@ -47,184 +60,6 @@
 namespace cg = cooperative_groups;
 
 namespace {
-
-constexpr int kThreads = 256;
-constexpr int kMaxBlocks = 2048;  // the caller sizes `partials` as 4 * kMaxBlocks
-
-struct CgArgs {
-  const float *a11, *a12, *a22, *wuh, *wuv, *wvh, *wvv, *bu, *bv;
-  float* x;  // (H, W, 2)
-  float *ru, *rv, *zu, *zv, *pu, *pv, *apu, *apv, *i00, *i01, *i11;
-  double* partials;
-  int* iters;  // [0]: running total, [1 + item]: this item's iteration count
-  int item;    // the item this launch solves
-  int H, W;
-  float rtol2;
-  int maxiter;
-};
-
-// Sum of a and b over the block, returned to every thread.
-__device__ void block_sum2(double& a, double& b) {
-  __shared__ double sh[2][kThreads / 32];
-  for (int o = 16; o > 0; o >>= 1) {
-    a += __shfl_down_sync(0xffffffffu, a, o);
-    b += __shfl_down_sync(0xffffffffu, b, o);
-  }
-  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
-  if (lane == 0) {
-    sh[0][warp] = a;
-    sh[1][warp] = b;
-  }
-  __syncthreads();
-  a = 0.0;
-  b = 0.0;
-  for (int w = 0; w < kThreads / 32; ++w) {
-    a += sh[0][w];
-    b += sh[1][w];
-  }
-  __syncthreads();
-}
-
-// Reduce this block's partial (a, b) and store it in slots sa, sb.
-__device__ void publish2(double a, double b, double* partials, int sa, int sb) {
-  block_sum2(a, b);
-  if (threadIdx.x == 0) {
-    partials[sa * kMaxBlocks + blockIdx.x] = a;
-    partials[sb * kMaxBlocks + blockIdx.x] = b;
-  }
-}
-
-// Every block sums slots sa, sb over all blocks in the same fixed order.
-__device__ void gather2(const double* partials, int sa, int sb, double& a, double& b) {
-  a = 0.0;
-  b = 0.0;
-  for (int i = threadIdx.x; i < gridDim.x; i += kThreads) {
-    a += partials[sa * kMaxBlocks + i];
-    b += partials[sb * kMaxBlocks + i];
-  }
-  block_sum2(a, b);
-}
-
-// (F^T diag(w) F x)(i, j) for the 4-neighbour edge-weighted Laplacian, in the
-// twin's operation order: ((eh + ev) - eh_left) - ev_up.
-__device__ __forceinline__ float lap_apply(const float* wh, const float* wv, const float* x,
-                                           int k, int i, int j, int H, int W) {
-  const float xc = x[k];
-  const float eh = wh[k] * (xc - (j < W - 1 ? x[k + 1] : 0.0f));
-  const float ev = wv[k] * (xc - (i < H - 1 ? x[k + W] : 0.0f));
-  const float ehl = j > 0 ? wh[k - 1] * (x[k - 1] - xc) : 0.0f;
-  const float evu = i > 0 ? wv[k - W] * (x[k - W] - xc) : 0.0f;
-  return ((eh + ev) - ehl) - evu;
-}
-
-__device__ __forceinline__ float lap_diag(const float* wh, const float* wv, int k, int i, int j,
-                                          int W) {
-  return ((wh[k] + (j > 0 ? wh[k - 1] : 0.0f)) + wv[k]) + (i > 0 ? wv[k - W] : 0.0f);
-}
-
-__global__ void __launch_bounds__(kThreads) cg_kernel(CgArgs s) {
-  cg::grid_group grid = cg::this_grid();
-  const int n = s.H * s.W;
-  const int first = blockIdx.x * blockDim.x + threadIdx.x;
-  const int stride = gridDim.x * blockDim.x;
-
-  // setup: preconditioner, x = 0, r = b, z = M^-1 r, p = z
-  double rz_part = 0.0, bb_part = 0.0;
-  for (int k = first; k < n; k += stride) {
-    const int i = k / s.W, j = k - (k / s.W) * s.W;
-    const float du = s.a11[k] + lap_diag(s.wuh, s.wuv, k, i, j, s.W);
-    const float dv = s.a22[k] + lap_diag(s.wvh, s.wvv, k, i, j, s.W);
-    const float a12 = s.a12[k];
-    const float dinv_u = fabsf(du) > 1e-12f ? 1.0f / du : 0.0f;
-    const float dinv_v = fabsf(dv) > 1e-12f ? 1.0f / dv : 0.0f;
-    const float det = du * dv - a12 * a12;
-    const bool ok = fabsf(det) > 1e-12f;
-    const float i00 = ok ? dv / det : dinv_u;
-    const float i01 = ok ? -a12 / det : 0.0f;
-    const float i11 = ok ? du / det : dinv_v;
-    s.i00[k] = i00;
-    s.i01[k] = i01;
-    s.i11[k] = i11;
-    const float bu = s.bu[k], bv = s.bv[k];
-    const float zu = i00 * bu + i01 * bv;
-    const float zv = i01 * bu + i11 * bv;
-    s.x[2 * k] = 0.0f;
-    s.x[2 * k + 1] = 0.0f;
-    s.ru[k] = bu;
-    s.rv[k] = bv;
-    s.pu[k] = zu;
-    s.pv[k] = zv;
-    rz_part += (double)bu * zu + (double)bv * zv;
-    bb_part += (double)bu * bu + (double)bv * bv;
-  }
-  publish2(rz_part, bb_part, s.partials, 0, 1);
-  grid.sync();
-  double rz_d, bb_d;
-  gather2(s.partials, 0, 1, rz_d, bb_d);
-  float rz = (float)rz_d;
-  float rr = (float)bb_d;
-  const float tol2 = s.rtol2 * rr;
-  grid.sync();  // every block has read slots 0 and 1 before they are reused
-
-  int it = 0;
-  while (it < s.maxiter && rr > tol2) {
-    // A p and p.Ap
-    double pap_part = 0.0, unused = 0.0;  // slot 3 only ever holds zeros
-    for (int k = first; k < n; k += stride) {
-      const int i = k / s.W, j = k - (k / s.W) * s.W;
-      const float pu = s.pu[k], pv = s.pv[k];
-      const float apu = (s.a11[k] * pu + s.a12[k] * pv) + lap_apply(s.wuh, s.wuv, s.pu, k, i, j, s.H, s.W);
-      const float apv = (s.a12[k] * pu + s.a22[k] * pv) + lap_apply(s.wvh, s.wvv, s.pv, k, i, j, s.H, s.W);
-      s.apu[k] = apu;
-      s.apv[k] = apv;
-      pap_part += (double)pu * apu + (double)pv * apv;
-    }
-    publish2(pap_part, unused, s.partials, 0, 3);
-    grid.sync();
-    double pap_d;
-    gather2(s.partials, 0, 3, pap_d, unused);
-    const float pap = (float)pap_d;
-    const float alpha = pap != 0.0f ? rz / pap : 0.0f;
-
-    // x += alpha p;  r -= alpha A p;  z = M^-1 r;  r.z and r.r
-    double rz_p = 0.0, rr_p = 0.0;
-    for (int k = first; k < n; k += stride) {
-      const float pu = s.pu[k], pv = s.pv[k];
-      s.x[2 * k] += alpha * pu;
-      s.x[2 * k + 1] += alpha * pv;
-      const float ru = s.ru[k] - alpha * s.apu[k];
-      const float rv = s.rv[k] - alpha * s.apv[k];
-      const float zu = s.i00[k] * ru + s.i01[k] * rv;
-      const float zv = s.i01[k] * ru + s.i11[k] * rv;
-      s.ru[k] = ru;
-      s.rv[k] = rv;
-      s.zu[k] = zu;
-      s.zv[k] = zv;
-      rz_p += (double)ru * zu + (double)rv * zv;
-      rr_p += (double)ru * ru + (double)rv * rv;
-    }
-    publish2(rz_p, rr_p, s.partials, 1, 2);
-    grid.sync();
-    double rz_new_d, rr_d;
-    gather2(s.partials, 1, 2, rz_new_d, rr_d);
-    const float rz_new = (float)rz_new_d;
-    rr = (float)rr_d;
-    const float beta = rz != 0.0f ? rz_new / rz : 0.0f;
-
-    // p = z + beta p
-    for (int k = first; k < n; k += stride) {
-      s.pu[k] = s.zu[k] + beta * s.pu[k];
-      s.pv[k] = s.zv[k] + beta * s.pv[k];
-    }
-    rz = rz_new;
-    ++it;
-    grid.sync();
-  }
-  if (blockIdx.x == 0 && threadIdx.x == 0) {
-    s.iters[1 + s.item] = it;
-    s.iters[0] += it;
-  }
-}
 
 // ---------------------------------------------------------------- resident
 
@@ -614,6 +449,346 @@ cudaError_t launch_resident_ppt(ResArgs& s, int blocks, int ppt, int smem, cudaS
   }
 }
 
+
+// ---------------------------------------------------------------- streaming
+
+constexpr int kSwCols = 256;              // a tile's columns, one thread each
+constexpr int kSwThreads = kSwCols + 32;  // and a warp whose lanes 0 and 1 take the ring's columns
+constexpr int kSwWarps = kSwThreads / 32;
+constexpr int kSwMinBlocks = 2;           // blocks an SM: STREAM_BLOCKS_PER_SM in ops/cuda/cg_kernel.py
+
+struct StreamArgs {
+  const float *a11, *a12, *a22, *wuh, *wuv, *wvh, *wvv, *bu, *bv;  // (H, W)
+  float* x;                                 // (H, W, 2)
+  float *ru, *rv, *apu, *apv, *i00, *i01, *i11;
+  float* p[2][2];                           // p by parity of the iteration, then field
+  double* partials;                         // (2 parities, 2 sums, gridDim.x)
+  int* iters;                               // [0]: running total, [1 + item]: this item's iterations
+  int item;
+  int H, W, tile_rows, tiles_x, tiles;
+  float rtol2;
+  int maxiter;
+};
+
+// Sums a and b over the block in one fixed order; every thread gets them.
+__device__ void sw_block_sum(double& a, double& b, double (*red)[kSwWarps]) {
+  for (int o = 16; o > 0; o >>= 1) {
+    a += __shfl_down_sync(0xffffffffu, a, o);
+    b += __shfl_down_sync(0xffffffffu, b, o);
+  }
+  const int lane = threadIdx.x & 31, warp = threadIdx.x >> 5;
+  if (lane == 0) {
+    red[0][warp] = a;
+    red[1][warp] = b;
+  }
+  __syncthreads();
+  a = 0.0;
+  b = 0.0;
+  for (int w = 0; w < kSwWarps; ++w) {
+    a += red[0][w];
+    b += red[1][w];
+  }
+  __syncthreads();
+}
+
+// A grid-wide sum: the block's sums go to the half of `partials` of the
+// epoch's parity (rewritten two epochs later, when every block has read
+// it), one grid barrier, then every block adds all blocks' sums in the same
+// fixed order.
+__device__ void sw_grid_sum(double& a, double& b, unsigned epoch, const StreamArgs& s,
+                            double (*red)[kSwWarps]) {
+  sw_block_sum(a, b, red);
+  const int G = gridDim.x;
+  double* slot = s.partials + (long)2 * (epoch & 1) * G;
+  if (threadIdx.x == 0) {
+    slot[blockIdx.x] = a;
+    slot[G + blockIdx.x] = b;
+  }
+  cg::this_grid().sync();
+  a = 0.0;
+  b = 0.0;
+  for (int i = threadIdx.x; i < G; i += kSwThreads) {
+    a += __ldcg(slot + i);
+    b += __ldcg(slot + G + i);
+  }
+  sw_block_sum(a, b, red);
+}
+
+// The preconditioner at pixel g = (i, j): the 2x2 block's inverse from the
+// coefficient planes, the Laplacian's diagonal from the four incident weights.
+__device__ __forceinline__ void sw_precond(const StreamArgs& s, long g, int i, int j, float wvu_u, float wvu_v,
+                                           float& i00, float& i01, float& i11) {
+  const float du = __ldg(s.a11 + g) + diag4(__ldg(s.wuh + g), j > 0 ? __ldg(s.wuh + g - 1) : 0.0f,
+                                            __ldg(s.wuv + g), i > 0 ? wvu_u : 0.0f);
+  const float dv = __ldg(s.a22 + g) + diag4(__ldg(s.wvh + g), j > 0 ? __ldg(s.wvh + g - 1) : 0.0f,
+                                            __ldg(s.wvv + g), i > 0 ? wvu_v : 0.0f);
+  block_jacobi(du, dv, __ldg(s.a12 + g), i00, i01, i11);
+}
+
+// What sweep 1 loads at a pixel of a row (zeros off the image): the
+// coefficients, r, p of the last iteration and x.
+struct SwLoad {
+  float a11, a12, a22, wuh, wvh, wuv, wvv, whl_u, whl_v, ru, rv, pou, pov;
+  float2 x;
+};
+
+// What A p at a pixel still needs once p of its row is known: the data
+// block's product with p, p, the weights its neighbours' terms take, the
+// term of the row above (known once that row's p is) and x updated.
+struct SwRow {
+  float dpu, dpv, pu, pv, wuh, wvh, wuv, wvv, whl_u, whl_v, evu_u, evu_v;
+  float2 x;
+};
+
+__device__ __forceinline__ SwLoad sw_load(const StreamArgs& s, const float* pou, const float* pov, int k, int i,
+                                          int j, bool row_ok, bool want_x) {
+  SwLoad l = {};
+  if (!row_ok) return l;
+  const long g = (long)i * s.W + j;
+  l.a11 = __ldg(s.a11 + g);
+  l.a12 = __ldg(s.a12 + g);
+  l.a22 = __ldg(s.a22 + g);
+  l.wuh = __ldg(s.wuh + g);
+  l.wvh = __ldg(s.wvh + g);
+  l.wuv = __ldg(s.wuv + g);
+  l.wvv = __ldg(s.wvv + g);
+  l.whl_u = j > 0 ? __ldg(s.wuh + g - 1) : 0.0f;
+  l.whl_v = j > 0 ? __ldg(s.wvh + g - 1) : 0.0f;
+  l.ru = __ldcg(s.ru + g);
+  l.rv = __ldcg(s.rv + g);
+  if (k > 0) {
+    l.pou = __ldcg(pou + g);
+    l.pov = __ldcg(pov + g);
+    if (want_x) l.x = __ldcg(reinterpret_cast<const float2*>(s.x) + g);
+  }
+  return l;
+}
+
+// Sweep 1 of iteration k (alpha and beta of iteration k - 1): on each tile
+// of the block, marching down its rows and the ring row above and below,
+// p = z + beta p_old with z = M^-1 r recomputed from r and the coefficient
+// planes (p = z at k = 0), also on the ring's columns; then, one row behind,
+// A p, its share of p.Ap, and the deferred x += alpha p_old (x = 0 at
+// k = 0).  Writes p (to the buffer of k's parity), A p and x on the tile.
+// The loads of the next row are in flight while a row is computed.
+__device__ double sw_sweep1(const StreamArgs& s, int k, float alpha, float beta, float (*sp)[2][kSwCols + 2]) {
+  const int tid = threadIdx.x, H = s.H, W = s.W;
+  const int off = tid < kSwCols ? tid : (tid == kSwCols ? -1 : kSwCols);  // column in the tile
+  const int c = off + 1;                                                  // slot in a row of sp
+  const bool lane = tid < kSwCols + 2;
+  const float* pou_g = s.p[(k + 1) & 1][0];
+  const float* pov_g = s.p[(k + 1) & 1][1];
+  float* pu_g = s.p[k & 1][0];
+  float* pv_g = s.p[k & 1][1];
+  double pap = 0.0;
+  for (int t = blockIdx.x; t < s.tiles; t += gridDim.x) {
+    const int ty = t / s.tiles_x, tx = t - ty * s.tiles_x;
+    const int i0 = ty * s.tile_rows, i1 = min(i0 + s.tile_rows, H);
+    const int j = tx * kSwCols + off;
+    const bool col = lane && j >= 0 && j < W;
+    const bool inner = tid < kSwCols && j < W;
+    float wuv_up = 0.0f, wvv_up = 0.0f;  // wuv, wvv of the row above the current one
+    if (col && i0 >= 2) {
+      wuv_up = __ldg(s.wuv + (long)(i0 - 2) * W + j);
+      wvv_up = __ldg(s.wvv + (long)(i0 - 2) * W + j);
+    }
+    SwLoad pre = sw_load(s, pou_g, pov_g, k, i0 - 1, j, col && i0 >= 1, false);
+    SwRow cur = {};
+    for (int i = i0 - 1, slot = 0; i <= i1; ++i, slot = slot == 2 ? 0 : slot + 1) {
+      const SwLoad l = pre;
+      if (i < i1) pre = sw_load(s, pou_g, pov_g, k, i + 1, j, col && i + 1 < H, inner && i + 1 < i1);
+      SwRow nxt = {};
+      if (col && i >= 0 && i < H) {
+        const float wvu_u = i > 0 ? wuv_up : 0.0f, wvu_v = i > 0 ? wvv_up : 0.0f;
+        const float du = l.a11 + diag4(l.wuh, l.whl_u, l.wuv, wvu_u);
+        const float dv = l.a22 + diag4(l.wvh, l.whl_v, l.wvv, wvu_v);
+        float i00, i01, i11;
+        block_jacobi(du, dv, l.a12, i00, i01, i11);
+        const float zu = i00 * l.ru + i01 * l.rv;
+        const float zv = i01 * l.ru + i11 * l.rv;
+        nxt.pu = k == 0 ? zu : zu + beta * l.pou;
+        nxt.pv = k == 0 ? zv : zv + beta * l.pov;
+        nxt.dpu = l.a11 * nxt.pu + l.a12 * nxt.pv;
+        nxt.dpv = l.a12 * nxt.pu + l.a22 * nxt.pv;
+        nxt.wuh = l.wuh;
+        nxt.wvh = l.wvh;
+        nxt.wuv = l.wuv;
+        nxt.wvv = l.wvv;
+        nxt.whl_u = l.whl_u;
+        nxt.whl_v = l.whl_v;
+        nxt.evu_u = i > 0 ? wvu_u * (cur.pu - nxt.pu) : 0.0f;
+        nxt.evu_v = i > 0 ? wvu_v * (cur.pv - nxt.pv) : 0.0f;
+        if (k > 0) nxt.x = make_float2(l.x.x + alpha * l.pou, l.x.y + alpha * l.pov);
+        wuv_up = l.wuv;
+        wvv_up = l.wvv;
+      }
+      if (lane) {
+        sp[slot][0][c] = nxt.pu;
+        sp[slot][1][c] = nxt.pv;
+      }
+      __syncthreads();
+      const int ii = i - 1;  // the row whose A p this step computes
+      if (inner && ii >= i0) {
+        const int ps = slot == 0 ? 2 : slot - 1;
+        const float pu = cur.pu, pv = cur.pv;
+        const float pur = j < W - 1 ? sp[ps][0][c + 1] : 0.0f, pvr = j < W - 1 ? sp[ps][1][c + 1] : 0.0f;
+        const float pud = ii < H - 1 ? nxt.pu : 0.0f, pvd = ii < H - 1 ? nxt.pv : 0.0f;
+        // (F^T diag(w) F p) in the twin's order ((eh + ev) - eh_left) - ev_up
+        const float eh_u = cur.wuh * (pu - pur), ev_u = cur.wuv * (pu - pud);
+        const float eh_v = cur.wvh * (pv - pvr), ev_v = cur.wvv * (pv - pvd);
+        const float ehl_u = j > 0 ? cur.whl_u * (sp[ps][0][c - 1] - pu) : 0.0f;
+        const float ehl_v = j > 0 ? cur.whl_v * (sp[ps][1][c - 1] - pv) : 0.0f;
+        const float apu = cur.dpu + (((eh_u + ev_u) - ehl_u) - cur.evu_u);
+        const float apv = cur.dpv + (((eh_v + ev_v) - ehl_v) - cur.evu_v);
+        pap += (double)pu * apu + (double)pv * apv;
+        const long g = (long)ii * W + j;
+        s.apu[g] = apu;
+        s.apv[g] = apv;
+        pu_g[g] = pu;
+        pv_g[g] = pv;
+        reinterpret_cast<float2*>(s.x)[g] = cur.x;
+      }
+      cur = nxt;
+    }
+    __syncthreads();  // the next tile's first rows reuse sp
+  }
+  return pap;
+}
+
+// [lo, hi): this block's share of the H W pixels, a multiple of 4 long.
+__device__ __forceinline__ void sw_range(long n, long& lo, long& hi) {
+  const long chunk = ((n + gridDim.x - 1) / gridDim.x + 3) & ~3L;
+  lo = min(n, (long)blockIdx.x * chunk);
+  hi = min(n, lo + chunk);
+}
+
+// Sweep 2: r -= alpha A p, z = M^-1 r, and the shares of r.z and r.r.
+__device__ __forceinline__ void sw_residual(const StreamArgs& s, long q, float alpha, double& rz, double& rr,
+                                            float& ru, float& rv) {
+  ru = __ldcg(s.ru + q) - alpha * __ldcg(s.apu + q);
+  rv = __ldcg(s.rv + q) - alpha * __ldcg(s.apv + q);
+  const float i01 = __ldcg(s.i01 + q);
+  const float zu = __ldcg(s.i00 + q) * ru + i01 * rv;
+  const float zv = i01 * ru + __ldcg(s.i11 + q) * rv;
+  rz += (double)ru * zu + (double)rv * zv;
+  rr += (double)ru * ru + (double)rv * rv;
+}
+
+__device__ void sw_sweep2(const StreamArgs& s, float alpha, double& rz, double& rr) {
+  const long n = (long)s.H * s.W;
+  long lo, hi;
+  sw_range(n, lo, hi);
+  rz = 0.0;
+  rr = 0.0;
+  if ((n & 3) == 0) {  // every plane 16-byte aligned: four pixels a load
+    for (long q = lo + 4 * threadIdx.x; q < hi; q += 4 * kSwThreads) {
+      const float4 ru = __ldcg(reinterpret_cast<const float4*>(s.ru + q));
+      const float4 rv = __ldcg(reinterpret_cast<const float4*>(s.rv + q));
+      const float4 au = __ldcg(reinterpret_cast<const float4*>(s.apu + q));
+      const float4 av = __ldcg(reinterpret_cast<const float4*>(s.apv + q));
+      const float4 m00 = __ldcg(reinterpret_cast<const float4*>(s.i00 + q));
+      const float4 m01 = __ldcg(reinterpret_cast<const float4*>(s.i01 + q));
+      const float4 m11 = __ldcg(reinterpret_cast<const float4*>(s.i11 + q));
+      const float r_u[4] = {ru.x, ru.y, ru.z, ru.w}, r_v[4] = {rv.x, rv.y, rv.z, rv.w};
+      const float a_u[4] = {au.x, au.y, au.z, au.w}, a_v[4] = {av.x, av.y, av.z, av.w};
+      const float c00[4] = {m00.x, m00.y, m00.z, m00.w}, c01[4] = {m01.x, m01.y, m01.z, m01.w};
+      const float c11[4] = {m11.x, m11.y, m11.z, m11.w};
+      float o_u[4], o_v[4];
+#pragma unroll
+      for (int e = 0; e < 4; ++e) {
+        o_u[e] = r_u[e] - alpha * a_u[e];
+        o_v[e] = r_v[e] - alpha * a_v[e];
+        const float zu = c00[e] * o_u[e] + c01[e] * o_v[e];
+        const float zv = c01[e] * o_u[e] + c11[e] * o_v[e];
+        rz += (double)o_u[e] * zu + (double)o_v[e] * zv;
+        rr += (double)o_u[e] * o_u[e] + (double)o_v[e] * o_v[e];
+      }
+      *reinterpret_cast<float4*>(s.ru + q) = make_float4(o_u[0], o_u[1], o_u[2], o_u[3]);
+      *reinterpret_cast<float4*>(s.rv + q) = make_float4(o_v[0], o_v[1], o_v[2], o_v[3]);
+    }
+  } else {
+    for (long q = lo + threadIdx.x; q < hi; q += kSwThreads) {
+      float ru, rv;
+      sw_residual(s, q, alpha, rz, rr, ru, rv);
+      s.ru[q] = ru;
+      s.rv[q] = rv;
+    }
+  }
+}
+
+// The whole solve of one system: setup, then while the test holds sweep 1,
+// a grid sum (p.Ap, so alpha), sweep 2, a grid sum (r.z and r.r, so beta
+// and the test): two grid barriers an iteration; then the last x update.
+__global__ void __launch_bounds__(kSwThreads, kSwMinBlocks) cg_stream(StreamArgs s) {
+  __shared__ float sp[3][2][kSwCols + 2];  // p of three rows of the tile and its ring's columns
+  __shared__ double red[2][kSwWarps];
+  const int H = s.H, W = s.W;
+  unsigned epoch = 0;
+
+  // setup: the preconditioner's planes, r = b, and the shares of r.z and b.b
+  double rz_d = 0.0, bb_d = 0.0;
+  for (int i = blockIdx.x; i < H; i += gridDim.x) {
+    for (int j = threadIdx.x; j < W; j += kSwThreads) {
+      const long g = (long)i * W + j;
+      float i00, i01, i11;
+      sw_precond(s, g, i, j, i > 0 ? __ldg(s.wuv + g - W) : 0.0f, i > 0 ? __ldg(s.wvv + g - W) : 0.0f,
+                 i00, i01, i11);
+      s.i00[g] = i00;
+      s.i01[g] = i01;
+      s.i11[g] = i11;
+      const float bu = __ldg(s.bu + g), bv = __ldg(s.bv + g);
+      s.ru[g] = bu;
+      s.rv[g] = bv;
+      const float zu = i00 * bu + i01 * bv;
+      const float zv = i01 * bu + i11 * bv;
+      rz_d += (double)bu * zu + (double)bv * zv;
+      bb_d += (double)bu * bu + (double)bv * bv;
+    }
+  }
+  sw_grid_sum(rz_d, bb_d, ++epoch, s, red);
+  float rz = (float)rz_d;
+  float rr = (float)bb_d;
+  const float tol2 = s.rtol2 * rr;
+
+  int it = 0;
+  float alpha = 0.0f, beta = 0.0f;
+  while (it < s.maxiter && rr > tol2) {
+    double pap_d = sw_sweep1(s, it, alpha, beta, sp), unused = 0.0;
+    sw_grid_sum(pap_d, unused, ++epoch, s, red);
+    const float pap = (float)pap_d;
+    alpha = pap != 0.0f ? rz / pap : 0.0f;
+    double rz_new_d, rr_d;
+    sw_sweep2(s, alpha, rz_new_d, rr_d);
+    sw_grid_sum(rz_new_d, rr_d, ++epoch, s, red);
+    const float rz_new = (float)rz_new_d;
+    rr = (float)rr_d;
+    beta = rz != 0.0f ? rz_new / rz : 0.0f;
+    rz = rz_new;
+    ++it;
+  }
+
+  // x += alpha p of the last iteration (x = 0 if there was none)
+  const long n = (long)H * W;
+  long lo, hi;
+  sw_range(n, lo, hi);
+  const float* pu = s.p[(it + 1) & 1][0];
+  const float* pv = s.p[(it + 1) & 1][1];
+  float2* x = reinterpret_cast<float2*>(s.x);
+  for (long q = lo + threadIdx.x; q < hi; q += kSwThreads) {
+    float2 xv = make_float2(0.0f, 0.0f);
+    if (it > 0) {
+      xv = __ldcg(x + q);
+      xv.x += alpha * __ldcg(pu + q);
+      xv.y += alpha * __ldcg(pv + q);
+    }
+    x[q] = xv;
+  }
+  if (blockIdx.x == 0 && threadIdx.x == 0) {
+    s.iters[1 + s.item] = it;
+    s.iters[0] += it;
+  }
+}
+
 }  // namespace
 
 // The card's SM count and the shared memory a block may opt in to.
@@ -659,34 +834,30 @@ extern "C" int cg_resident_f32(const float* a11, const float* a12, const float* 
   return (int)cudaSuccess;
 }
 
-// B systems of coefficient planes (B, H, W) each; x: (B, H, W, 2) out; work:
-// 11 planes (H, W), reused item after item; partials: 4 * kMaxBlocks
-// doubles; iters: 1 + B ints.  One launch per item.
-extern "C" int cg_solve_f32(const float* a11, const float* a12, const float* a22, const float* wuh,
-                            const float* wuv, const float* wvh, const float* wvv, const float* bu,
-                            const float* bv, float* x, float* work, double* partials, int* iters,
-                            int B, int H, int W, float rtol2, int maxiter, void* stream) {
-  if (B < 1) return (int)cudaErrorInvalidValue;
+// The streaming solve of B systems of coefficient planes (B, H, W) each, one
+// cooperative launch an item, as cg_plan in ops/cuda/cg_kernel.py chooses
+// it: `blocks` blocks (at most kSwMinBlocks an SM), tiles of `tile_rows`
+// rows and kSwCols columns.  x: (B, H, W, 2) out; work: 11 planes (H, W),
+// reused item after item; partials: 4 * blocks doubles; iters: 1 + B ints.
+extern "C" int cg_stream_f32(const float* a11, const float* a12, const float* a22, const float* wuh,
+                             const float* wuv, const float* wvh, const float* wvv, const float* bu,
+                             const float* bv, float* x, float* work, double* partials, int* iters,
+                             int B, int H, int W, float rtol2, int maxiter, int blocks, int tile_rows,
+                             void* stream) {
+  if (B < 1 || H < 1 || W < 1 || blocks < 1 || tile_rows < 1) return (int)cudaErrorInvalidValue;
   const long n = (long)H * W;
-  CgArgs s;
+  StreamArgs s;
   float* planes[11];
   for (int q = 0; q < 11; ++q) planes[q] = work + q * n;
-  s.ru = planes[0]; s.rv = planes[1]; s.zu = planes[2]; s.zv = planes[3];
-  s.pu = planes[4]; s.pv = planes[5]; s.apu = planes[6]; s.apv = planes[7];
-  s.i00 = planes[8]; s.i01 = planes[9]; s.i11 = planes[10];
+  s.ru = planes[0]; s.rv = planes[1]; s.apu = planes[2]; s.apv = planes[3];
+  s.i00 = planes[4]; s.i01 = planes[5]; s.i11 = planes[6];
+  s.p[0][0] = planes[7]; s.p[0][1] = planes[8]; s.p[1][0] = planes[9]; s.p[1][1] = planes[10];
   s.partials = partials;
   s.iters = iters;
-  s.H = H; s.W = W; s.rtol2 = rtol2; s.maxiter = maxiter;
-
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  cudaOccupancyMaxActiveBlocksPerMultiprocessor(&per_sm, cg_kernel, kThreads, 0);
-  long blocks = (long)per_sm * sms;
-  const long want = (n + kThreads - 1) / kThreads;
-  if (blocks > want) blocks = want;
-  if (blocks > kMaxBlocks) blocks = kMaxBlocks;
-  if (blocks < 1) return (int)cudaErrorInvalidConfiguration;
+  s.H = H; s.W = W; s.tile_rows = tile_rows;
+  s.tiles_x = (W + kSwCols - 1) / kSwCols;
+  s.tiles = s.tiles_x * ((H + tile_rows - 1) / tile_rows);
+  s.rtol2 = rtol2; s.maxiter = maxiter;
   for (int item = 0; item < B; ++item) {
     s.a11 = a11 + item * n; s.a12 = a12 + item * n; s.a22 = a22 + item * n;
     s.wuh = wuh + item * n; s.wuv = wuv + item * n; s.wvh = wvh + item * n; s.wvv = wvv + item * n;
@@ -694,8 +865,8 @@ extern "C" int cg_solve_f32(const float* a11, const float* a12, const float* a22
     s.x = x + 2 * item * n;
     s.item = item;
     void* kargs[] = {&s};
-    cudaError_t err = cudaLaunchCooperativeKernel((const void*)cg_kernel, dim3((unsigned)blocks),
-                                                  dim3(kThreads), kargs, 0,
+    cudaError_t err = cudaLaunchCooperativeKernel((const void*)cg_stream, dim3((unsigned)blocks),
+                                                  dim3(kSwThreads), kargs, 0,
                                                   static_cast<cudaStream_t>(stream));
     if (err != cudaSuccess) return (int)err;
     err = cudaGetLastError();

@@ -1,11 +1,10 @@
 // Chambolle primal-dual ROF structure component.  Replaces the Pallas
-// kernels rof_structure_2d_pallas and rof_structure_2d_tiled
+// kernels rof_structure_2d_pallas and rof_structure_2d_tiled / _rof_tiled_call
 // (optical_flow_tpu/ops/pallas/rof_kernel.py), which keep the image and the
 // dual field in fast memory for all iterations.
 //
-// Bound on the H100: latency.  An iteration is ~28 flops per pixel, ~0.2 us
-// at 2x388x584 at the float32 peak, so a launch per iteration (~7 us) costs
-// more than the work.  Two kernels:
+// An iteration is ~28 flops per pixel and one stencil exchange each way, so
+// the bound is the traffic between iterations, not arithmetic.  Two kernels:
 //
 // * rof_resident (the main path's sizes): one cooperative launch for all
 //   iterations.  Each block owns a band of rows of one image and keeps its
@@ -14,71 +13,147 @@
 //   in place, publishes the band's first row (px, py) and last row (py) to
 //   a buffer that alternates with the iteration's parity, waits at one grid
 //   barrier and reads its neighbours' rows.  The output is written once.
-// * rof_step / rof_final (too large for shared memory): one fused launch per
-//   iteration that recomputes the primal at the three points it needs
-//   (reading p at radius 1 left/up of each) and double-buffers (px, py).
+// * rof_tiled (images too large for shared memory; the counterpart of
+//   _rof_tiled_call): overlap-and-discard tiling, temporally blocked.  A
+//   block loads a window of kWinRows x kWinCols pixels of one image (its
+//   tile and a halo of h pixels each side), runs k <= h iterations on chip
+//   and writes (px, py) of the tile only.  The dual step at a pixel reads
+//   the primal one pixel right and down, and the primal reads p one pixel
+//   left and up, so the region that is exact shrinks by one pixel a side an
+//   iteration: after k iterations everything at least k pixels from the
+//   window's edge is, the tile included.  The zero boundary applies at the
+//   image's true edges only (no pixel inside the image ever reads one
+//   outside it), never at a window's edge.  A call is `passes` launches:
+//   the first reads no dual field (it is zero), each writes (px, py) to the
+//   other of two buffers than it read, so no block reads what another
+//   writes, and the last (k <= h - 1, since the primal reads p one pixel
+//   further) writes u = im + theta div p instead.  Per pixel a thread keeps
+//   px, py and u of kRowsPerThread rows of one column in registers; the
+//   image, px and u sit in shared memory for the neighbours' reads, py of
+//   each strip's last row for the strip below.
 //
 // Every operation rounds as the plain PyTorch version does (the library is
 // built with --fmad=false), in the same order, so both kernels equal it bit
-// for bit.
+// for bit.  Where |p|^2 <= 1 the norm is 1 and the division by it, exact,
+// is skipped.
 #include <cooperative_groups.h>
 #include <cuda_runtime.h>
 
 namespace {
 
-constexpr int kThreads = 256;
+// ------------------------------------------------------------------ tiled
 
-struct Planes {
-  const float* im;
-  const float* px;
-  const float* py;
-  int H, W;
+constexpr int kTiledThreads = 1024;
+constexpr int kWinCols = 128;                          // one thread a column
+constexpr int kStrips = kTiledThreads / kWinCols;      // 8 strips of rows
+constexpr int kRowsPerThread = 12;
+constexpr int kWinRows = kStrips * kRowsPerThread;     // 96
+
+struct TiledArgs {
+  const float* im;      // (B, H, W)
+  const float* px_in;   // the dual field the pass starts from; null on the first pass
+  const float* py_in;
+  float* px_out;        // where the pass leaves it; null on the last pass
+  float* py_out;
+  float* out;           // u = im + theta div p, on the last pass only
+  int H, W, halo, tiles_x, tiles_per_image, k;
+  float theta, delta;
 };
 
-// u = im + theta * div(p) at (i, j) of one image; div is the backward
-// difference with zero boundary: (px - px[j-1]) + (py - py[i-1]).
-__device__ __forceinline__ float primal(const Planes& s, long base, int i, int j,
-                                        float theta) {
-  const long k = base + (long)i * s.W + j;
-  const float pxl = j > 0 ? s.px[k - 1] : 0.0f;
-  const float pyu = i > 0 ? s.py[k - s.W] : 0.0f;
-  const float div = (s.px[k] - pxl) + (s.py[k] - pyu);
-  return s.im[k] + theta * div;
-}
+// Dynamic shared memory: the image, px and u of the window, then py of each
+// strip's last row.
+__global__ void __launch_bounds__(kTiledThreads, 1) rof_tiled(TiledArgs s) {
+  extern __shared__ float smem[];
+  float* sim = smem;
+  float* spx = sim + kWinRows * kWinCols;
+  float* su = spx + kWinRows * kWinCols;
+  float* spy = su + kWinRows * kWinCols;  // (kStrips, kWinCols)
+  const int tid = threadIdx.x, b = tid % kWinCols, st = tid / kWinCols;
+  const int img = blockIdx.x / s.tiles_per_image, t = blockIdx.x - img * s.tiles_per_image;
+  const int ty = t / s.tiles_x, tx = t - ty * s.tiles_x;
+  const int h = s.halo, H = s.H, W = s.W;
+  const int tr = kWinRows - 2 * h, tc = kWinCols - 2 * h;  // the tile
+  const int gi0 = ty * tr - h + st * kRowsPerThread;       // this strip's first image row
+  const int gj = tx * tc - h + b;                          // this thread's image column
+  const long base = (long)img * H * W;
+  const bool col_in = gj >= 0 && gj < W;
+  const bool has_left = gj > 0 && b > 0, has_right = gj < W - 1 && b < kWinCols - 1;
 
-__global__ void rof_step(Planes s, float* __restrict__ px_out, float* __restrict__ py_out,
-                         long n, float theta, float delta) {
-  const long hw = (long)s.H * s.W;
-  for (long idx = (long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (long)gridDim.x * blockDim.x) {
-    const long base = (idx / hw) * hw;
-    const long r = idx - base;
-    const int i = (int)(r / s.W);
-    const int j = (int)(r - (long)i * s.W);
-    const float u = primal(s, base, i, j, theta);
-    // forward-difference gradient, zero at the far boundary
-    const float gx = j < s.W - 1 ? primal(s, base, i, j + 1, theta) - u : 0.0f;
-    const float gy = i < s.H - 1 ? primal(s, base, i + 1, j, theta) - u : 0.0f;
-    const float px = s.px[idx] + delta * gx;
-    const float py = s.py[idx] + delta * gy;
-    const float norm = fmaxf(sqrtf(px * px + py * py), 1.0f);
-    px_out[idx] = px / norm;
-    py_out[idx] = py / norm;
+  float px[kRowsPerThread], py[kRowsPerThread], u[kRowsPerThread];
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int gi = gi0 + r, a = st * kRowsPerThread + r;
+    const bool in = col_in && gi >= 0 && gi < H;
+    const long g = base + (long)gi * W + gj;
+    sim[a * kWinCols + b] = in ? s.im[g] : 0.0f;
+    px[r] = in && s.px_in ? s.px_in[g] : 0.0f;
+    py[r] = in && s.py_in ? s.py_in[g] : 0.0f;
+    spx[a * kWinCols + b] = px[r];
+    if (r == kRowsPerThread - 1) spy[st * kWinCols + b] = py[r];
+  }
+  __syncthreads();
+
+  // u = im + theta div p on the thread's rows; div is the backward
+  // difference with zero boundary: (px - px[j-1]) + (py - py[i-1])
+  auto primal = [&]() {
+    float pyu = st > 0 ? spy[(st - 1) * kWinCols + b] : 0.0f;
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) {
+      const int a = st * kRowsPerThread + r;
+      const float pxl = has_left ? spx[a * kWinCols + b - 1] : 0.0f;
+      const float pyu_r = gi0 + r > 0 ? pyu : 0.0f;
+      u[r] = sim[a * kWinCols + b] + s.theta * ((px[r] - pxl) + (py[r] - pyu_r));
+      pyu = py[r];
+    }
+  };
+
+  for (int it = 0; it < s.k; ++it) {
+    primal();
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) su[(st * kRowsPerThread + r) * kWinCols + b] = u[r];
+    __syncthreads();
+    // the dual step: forward-difference gradient, zero at the far boundary
+#pragma unroll
+    for (int r = 0; r < kRowsPerThread; ++r) {
+      const int a = st * kRowsPerThread + r, gi = gi0 + r;
+      const float gx = gj < W - 1 ? (has_right ? su[a * kWinCols + b + 1] : u[r]) - u[r] : 0.0f;
+      float ud = u[r];
+      if (r < kRowsPerThread - 1)
+        ud = u[r + 1];
+      else if (st < kStrips - 1)
+        ud = su[(a + 1) * kWinCols + b];
+      const float gy = gi < H - 1 ? ud - u[r] : 0.0f;
+      float pxn = px[r] + s.delta * gx;
+      float pyn = py[r] + s.delta * gy;
+      const float n2 = pxn * pxn + pyn * pyn;
+      if (n2 > 1.0f) {  // norm = max(sqrt(n2), 1) = sqrt(n2); else norm = 1
+        const float norm = sqrtf(n2);
+        pxn = pxn / norm;
+        pyn = pyn / norm;
+      }
+      px[r] = pxn;
+      py[r] = pyn;
+      spx[a * kWinCols + b] = pxn;
+    }
+    spy[st * kWinCols + b] = py[kRowsPerThread - 1];
+    __syncthreads();
+  }
+
+  const bool col_tile = col_in && b >= h && b < h + tc;
+  if (s.out) primal();
+#pragma unroll
+  for (int r = 0; r < kRowsPerThread; ++r) {
+    const int a = st * kRowsPerThread + r, gi = gi0 + r;
+    if (!col_tile || a < h || a >= h + tr || gi >= H) continue;
+    const long g = base + (long)gi * W + gj;
+    if (s.out) {
+      s.out[g] = u[r];
+    } else {
+      s.px_out[g] = px[r];
+      s.py_out[g] = py[r];
+    }
   }
 }
-
-__global__ void rof_final(Planes s, float* __restrict__ out, long n, float theta) {
-  const long hw = (long)s.H * s.W;
-  for (long idx = (long)blockIdx.x * blockDim.x + threadIdx.x; idx < n;
-       idx += (long)gridDim.x * blockDim.x) {
-    const long base = (idx / hw) * hw;
-    const long r = idx - base;
-    const int i = (int)(r / s.W);
-    const int j = (int)(r - (long)i * s.W);
-    out[idx] = primal(s, base, i, j, theta);
-  }
-}
-
 
 // ---------------------------------------------------------------- resident
 
@@ -185,28 +260,42 @@ __global__ void __launch_bounds__(kRofThreads, 1) rof_resident(RofArgs s) {
 
 }  // namespace
 
-// im: (B, H, W); p: 4 planes of (B, H, W) -- (px, py) of buffer 0, which the
-// caller zeroes, then (px, py) of buffer 1; out: (B, H, W).
-extern "C" int rof_structure_f32(const float* im, float* p, float* out, int B, int H, int W,
-                                 float theta, int n_iters, void* stream) {
-  cudaStream_t st = static_cast<cudaStream_t>(stream);
+// The tiled solve of B (H, W) images, as rof_plan in ops/cuda/rof_kernel.py
+// chooses it: a halo of `halo` pixels (the tile is the window less the halo
+// each side) and `passes` launches, pass q running n_iters / passes
+// iterations, one more for the first n_iters % passes (so the last runs at
+// most halo - 1).  p: (px, py) of two buffers, 4 planes of (B, H, W), none
+// read before it is written (none used if passes is 1); out: (B, H, W);
+// smem: the dynamic shared memory a block.
+extern "C" int rof_tiled_f32(const float* im, float* p, float* out, int B, int H, int W, float theta,
+                             int n_iters, int halo, int passes, int smem, void* stream) {
+  const int tr = kWinRows - 2 * halo, tc = kWinCols - 2 * halo;
+  const int per = passes > 0 ? n_iters / passes : 0, extra = passes > 0 ? n_iters % passes : 0;
+  if (B < 1 || H < 1 || W < 1 || n_iters < 0 || passes < 1 || tr < 1 || tc < 1 || per + (extra > 0) > halo ||
+      per > halo - 1)
+    return (int)cudaErrorInvalidValue;
+  const void* fn = (const void*)rof_tiled;
+  cudaError_t err = cudaFuncSetAttribute(fn, cudaFuncAttributeMaxDynamicSharedMemorySize, smem);
+  if (err != cudaSuccess) return (int)err;
   const long n = (long)B * H * W;
-  int dev = 0, sms = 0;
-  cudaGetDevice(&dev);
-  cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  const long want = (n + kThreads - 1) / kThreads;
-  const int blocks = (int)(want < (long)sms * 16 ? want : (long)sms * 16);
-  const float delta = 1.0f / (4.0f * theta);
+  const int tiles_x = (W + tc - 1) / tc, tiles_y = (H + tr - 1) / tr;
   float* buf[2][2] = {{p, p + n}, {p + 2 * n, p + 3 * n}};
-  int cur = 0;
-  for (int it = 0; it < n_iters; ++it) {
-    Planes s{im, buf[cur][0], buf[cur][1], H, W};
-    rof_step<<<blocks, kThreads, 0, st>>>(s, buf[1 - cur][0], buf[1 - cur][1], n, theta, delta);
-    cur = 1 - cur;
+  cudaStream_t st = static_cast<cudaStream_t>(stream);
+  for (int q = 0; q < passes; ++q) {
+    const bool last = q == passes - 1;
+    TiledArgs s{im,
+                q > 0 ? buf[(q - 1) & 1][0] : nullptr,
+                q > 0 ? buf[(q - 1) & 1][1] : nullptr,
+                last ? nullptr : buf[q & 1][0],
+                last ? nullptr : buf[q & 1][1],
+                last ? out : nullptr,
+                H, W, halo, tiles_x, tiles_x * tiles_y, per + (q < extra ? 1 : 0),
+                theta, 1.0f / (4.0f * theta)};
+    rof_tiled<<<B * tiles_x * tiles_y, kTiledThreads, smem, st>>>(s);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return (int)err;
   }
-  Planes s{im, buf[cur][0], buf[cur][1], H, W};
-  rof_final<<<blocks, kThreads, 0, st>>>(s, out, n, theta);
-  return (int)cudaGetLastError();
+  return (int)cudaSuccess;
 }
 
 // The resident solve: per_image bands of rows for each of the B images, one

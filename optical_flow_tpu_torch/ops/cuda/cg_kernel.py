@@ -15,8 +15,9 @@ one launch with the whole loop on the device, by one of two paths that
   state in registers and shared memory for the whole solve; two grid
   barriers per iteration.  A system that one block holds runs as one block
   (``single``), with no grid barrier.
-* ``streaming``: planes in global memory (L2), a grid-stride loop, three
-  grid barriers per iteration; for systems too large to stay on chip.
+* ``streaming``: planes in device memory, two sweeps and two grid
+  barriers per iteration (28 plane-passes: :func:`streaming_plan`), for
+  systems too large to stay on chip.
 
 A leading batch axis of B systems is one call, with each item's own
 stopping test and trip count, as the Pallas kernel's batch grid axis
@@ -43,11 +44,13 @@ import torch
 from optical_flow_tpu_torch.ops.cuda.build import check, current_stream, device_limits, load_library, require_cuda_f32
 from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply_split, weighted_laplacian_diag
 
-_MAX_BLOCKS = 2048  # kMaxBlocks in csrc/cg.cu (streaming kernel)
 RES_THREADS = 256  # kResThreads in csrc/cg.cu
 RES_MAX_BLOCKS = 256  # kResMaxBlocks in csrc/cg.cu
 RES_STATIC_SMEM = 10240  # bytes kept for the kernel's static shared memory (9,600 used)
 PPTS = (1, 2, 4, 8)  # pixels a thread (csrc/cg.cu instantiates these)
+STREAM_COLS = 256  # kSwCols in csrc/cg.cu: the columns of a streaming tile
+STREAM_BLOCKS_PER_SM = 2  # kSwMinBlocks: the streaming kernel's blocks an SM
+STREAM_PLANE_PASSES = 28  # planes the streaming kernel reads or writes an iteration
 
 launches = 0  # device launches of the kernel (one a call, or one an item where the plan says so)
 launches_resident = 0  # of which on the resident path (one block an item, or bands)
@@ -68,15 +71,17 @@ def reset_stats() -> None:
 
 class CgPlan(NamedTuple):
     """How a batch of solves runs: ``path`` is "single", "resident" or
-    "streaming"; ``blocks`` bands an item, ``ppt`` pixels a thread, ``smem``
-    bytes of dynamic shared memory a block (0 on the streaming path) and
-    ``items`` systems a launch (1: one launch per item)."""
+    "streaming"; ``blocks`` bands an item (streaming: blocks a launch),
+    ``ppt`` pixels a thread, ``smem`` bytes of dynamic shared memory a block
+    (0 on the streaming path), ``items`` systems a launch (1: one launch per
+    item) and ``rows`` the rows of a streaming tile."""
 
     path: str
     blocks: int = 0
     ppt: int = 0
     smem: int = 0
     items: int = 1
+    rows: int = 0
 
 
 def band_bounds(H: int, nb: int):
@@ -102,6 +107,16 @@ def _resident_bands(nb: int, H: int, W: int, limit: int):
     return None
 
 
+def streaming_plan(H: int, W: int, sms: int) -> CgPlan:
+    """The streaming path for (H, W) systems on ``sms`` SMs: STREAM_BLOCKS_PER_SM
+    blocks an SM, all resident (one cooperative launch an item), and tiles
+    of STREAM_COLS columns whose rows make as many tiles as there are blocks
+    at most, so that each block marches down one tile a sweep."""
+    blocks = sms * STREAM_BLOCKS_PER_SM
+    row_tiles = min(max(1, blocks // -(-W // STREAM_COLS)), H)
+    return CgPlan("streaming", blocks, 0, 0, 1, -(-H // row_tiles))
+
+
 def cg_plan(B: int, H: int, W: int, sms: int, smem_optin: int) -> CgPlan:
     """The path of B (H, W) solves on a card with ``sms`` SMs and
     ``smem_optin`` bytes of shared memory a block: one block an item if it
@@ -117,7 +132,7 @@ def cg_plan(B: int, H: int, W: int, sms: int, smem_optin: int) -> CgPlan:
             fit = _resident_bands(nb, H, W, limit) if nb >= 2 else None
             if fit is not None:
                 return CgPlan("resident", nb, *fit, per_launch)
-    return CgPlan("streaming")
+    return streaming_plan(H, W, sms)
 
 
 def _device_key(device) -> torch.device:
@@ -276,12 +291,13 @@ def launch(planes, rtol: float, maxiter: int, plan: CgPlan):
     with torch.cuda.device(dev):
         if plan.path == "streaming":
             work = torch.empty((11, H, W), dtype=torch.float32, device=dev)
-            partials = torch.empty(4 * _MAX_BLOCKS, dtype=torch.float64, device=dev)
-            err = lib.cg_solve_f32(
+            partials = torch.empty(4 * plan.blocks, dtype=torch.float64, device=dev)
+            err = lib.cg_stream_f32(
                 *[p.data_ptr() for p in planes], x.data_ptr(), work.data_ptr(), partials.data_ptr(),
-                iters.data_ptr(), B, H, W, float(rtol) ** 2, int(maxiter), current_stream(dev),
+                iters.data_ptr(), B, H, W, float(rtol) ** 2, int(maxiter), plan.blocks, plan.rows,
+                current_stream(dev),
             )
-            check(err, "cg_solve_f32")
+            check(err, "cg_stream_f32")
             return x
         zhalo = torch.empty((min(plan.items, B) * plan.blocks, 4, W), dtype=torch.float32, device=dev)
         partials = torch.empty(4 * RES_MAX_BLOCKS, dtype=torch.float64, device=dev)

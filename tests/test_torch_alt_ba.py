@@ -7,7 +7,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from torch_parity import j, jax_method_state, n, t  # noqa: E402
+from torch_parity import j, jax_method_state, n, one_cpu_thread, t  # noqa: E402,F401
 
 # the stable configuration of tests/test_full_parity.py: the preset's own
 # default (lambda2 -> 100 over ten warp iterations) diverges by design

@@ -21,7 +21,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import FAMILY_CROP, SLICE_CROP32, j, n, rubberwhale_crop, t  # noqa: E402
+from torch_parity import FAMILY_CROP, SLICE_CROP32, j, n, one_cpu_thread, rubberwhale_crop, t  # noqa: E402,F401
 
 # Each family at its preset but for a one-level GNC pyramid, which keeps the
 # JAX side to one level compile a family: ba at three warp iterations (ten
@@ -43,16 +43,6 @@ KNOWN_HW = (96, 128)
 KNOWN_SHIFT = 2
 INTERIOR = np.s_[16:-16, 18:-16]  # 16 px at every border and the columns the roll wraps
 MINUTES = re.compile(r"\d+\.\d+ minutes")
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_thread():
-    """Small tensors: one intra-op thread runs them fastest and keeps the module
-    from oversubscribing the CPU beside other test workers; restored after."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _configure(ope, name, dtype):
@@ -388,8 +378,8 @@ def test_4k_weighted_median_kernel_matches_twin(cuda_device):
 
 @pytest.mark.cuda
 def test_4k_streaming_pcg_and_rof_match_their_twins(cuda_device):
-    """At 2160x3840 both PCG and ROF take their streaming path, each within
-    chip_smoke.py's limits of its twin (PCG 1e-5 x scale, ROF 1e-6)."""
+    """At 2160x3840 PCG takes its streaming path and ROF its tiled one, each
+    within chip_smoke.py's limits of its twin (PCG 1e-5 x scale, ROF 1e-6)."""
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel
     from optical_flow_tpu_torch.ops.cuda.build import device_limits
     from optical_flow_tpu_torch.ops.stencil import FlowSystem
@@ -397,7 +387,7 @@ def test_4k_streaming_pcg_and_rof_match_their_twins(cuda_device):
     H, W = 2160, 3840
     limits = device_limits(cuda_device)
     assert cg_kernel.cg_plan(1, H, W, *limits).path == "streaming"
-    assert rof_kernel.rof_plan(2, H, W, *limits).path == "streaming"
+    assert rof_kernel.rof_plan(2, H, W, *limits).path == "tiled"
     sysm = FlowSystem(*[torch.as_tensor(p, dtype=torch.float32, device=cuda_device)
                         for p in _random_system(np.random.default_rng(0), H, W)])
     x = cg_kernel.cg_solve(sysm, 1e-3, 50)

@@ -17,7 +17,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import REPO_DATA_DIR, SLICE_CROP32, t  # noqa: E402
+from torch_parity import REPO_DATA_DIR, SLICE_CROP32, one_cpu_thread, t  # noqa: E402,F401
 
 SEQS = ("RubberWhale", "Hydrangea", "Dimetrodon", "RubberWhale")
 PARAMS = {"display": False, "solver": "pcg"}
@@ -313,10 +313,10 @@ def test_cg_plan_batched_main_path_levels():
             ("resident", 33, 2, 24528, 4), ("resident", 33, 1, 8760, 4), ("single", 1, 4, 45288, 4)],
     }
     for B, plans in expected.items():
-        assert [tuple(cg_plan(B, *s, *H100)) for s in MAIN_PATH_LEVELS] == plans, B
-    assert cg_plan(4, 2160, 3840, *H100) == CgPlan("streaming")
+        assert [cg_plan(B, *s, *H100) for s in MAIN_PATH_LEVELS] == [CgPlan(*p) for p in plans], B
+    assert cg_plan(4, 2160, 3840, *H100) == CgPlan("streaming", 264, 0, 0, 1, 128)
     assert cg_plan(200, 49, 73, *H100).items == 1  # too many items to share the SMs: one at a time
-    assert tuple(cg_plan(132, 97, 146, *H100)) == ("resident", 97, 1, 10512, 1)
+    assert cg_plan(132, 97, 146, *H100) == CgPlan("resident", 97, 1, 10512, 1)
 
 
 def test_cg_device_launches_follow_the_plan():

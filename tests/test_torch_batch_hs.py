@@ -15,7 +15,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import STATIC, family_batch, jax_family_flows, port_batched, port_single, t  # noqa: E402
+from torch_parity import (  # noqa: E402,F401
+    STATIC, family_batch, jax_family_flows, one_cpu_thread, port_batched, port_single, t,
+)
 
 PARAMS = {"display": False}
 # label -> (method, params): JAX's default batched method, the texture route, and SOR

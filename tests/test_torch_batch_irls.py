@@ -19,7 +19,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import STATIC, jax_family_flows, port_batched, port_single, t  # noqa: E402
+from torch_parity import STATIC, jax_family_flows, one_cpu_thread, port_batched, port_single, t  # noqa: E402,F401
 
 PARAMS = {"display": False}
 TIGHT = {"backslash_rtol": 1e-12, "backslash_maxiter": 8000}

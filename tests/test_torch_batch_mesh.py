@@ -16,14 +16,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_spatial import _smooth  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_cpu_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity import one_cpu_thread  # noqa: E402,F401
 
 
 def _mesh(batch, space):

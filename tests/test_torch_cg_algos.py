@@ -21,7 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from torch_parity import j, n, t  # noqa: E402
+from torch_parity import j, n, one_cpu_thread, t  # noqa: E402,F401
 
 RTOL = 1e-9  # |dx| <= RTOL * max|x|
 H, W, SHARDS = 32, 24, 4

@@ -9,7 +9,7 @@ import pytest
 torch = pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from torch_parity import jax_method_state  # noqa: E402
+from torch_parity import jax_method_state, one_cpu_thread  # noqa: E402,F401
 
 CLASSIC_NL = ["classic+nl", "classic+nl-fast", "classic+nl-full"]
 BA_HS = [

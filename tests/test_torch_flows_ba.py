@@ -15,7 +15,7 @@ import pytest
 pytest.importorskip("torch")
 pytest.importorskip("jax")
 
-from torch_parity import SLICE_CROP32, flows, rubberwhale_crop  # noqa: E402
+from torch_parity import SLICE_CROP32, flows, one_cpu_thread, rubberwhale_crop  # noqa: E402,F401
 
 # name -> the preset's overrides; the max |d| measured is in each comment
 CASES = {

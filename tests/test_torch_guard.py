@@ -8,7 +8,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from torch_parity import j, n, t  # noqa: E402
+from torch_parity import j, n, one_cpu_thread, t  # noqa: E402,F401
 
 
 def _fields(case):

@@ -12,7 +12,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import close, j, n, t  # noqa: E402
+from torch_parity import close, j, n, one_cpu_thread, t  # noqa: E402,F401
 
 
 @pytest.fixture()

@@ -21,6 +21,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 import torch_multiprocess as tm  # noqa: E402
+from torch_parity import one_cpu_thread  # noqa: E402,F401
 
 LAUNCHES = {"4x1": (4, 1), "2x2": (2, 2)}  # processes x shards a process
 

@@ -11,7 +11,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from torch_parity import REPO_DATA_DIR, close, j, n, t  # noqa: E402
+from torch_parity import REPO_DATA_DIR, close, j, n, one_cpu_thread, t  # noqa: E402,F401
 
 
 # --------------------------------------------------------------------- compat

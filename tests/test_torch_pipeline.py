@@ -14,15 +14,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
+from torch_parity import one_cpu_thread  # noqa: E402,F401
+
 DEVICES = ["cpu"] * 4
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_cpu_thread():
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _smooth_pair(seed, h, w, rgb=False):

@@ -22,6 +22,7 @@ from optical_flow_tpu_torch.ops.cuda.cg_kernel import (  # noqa: E402
 )
 from optical_flow_tpu_torch.ops.cuda.rof_kernel import rof_plan, rof_structure_2d  # noqa: E402
 from optical_flow_tpu_torch.ops.stencil import FlowSystem, system_apply, system_apply_split, weighted_laplacian_diag  # noqa: E402
+from torch_parity import one_cpu_thread  # noqa: E402,F401
 
 H100 = (132, 232448)  # SMs, shared memory a block may opt in to
 # the (H, W) of the main path's pyramid levels (RubberWhale 584x388, classic+nl-fast)
@@ -81,8 +82,8 @@ def test_cg_plan_main_path_levels_are_resident(shape):
 
 
 def test_cg_plan_large_systems_stream_and_small_ones_take_one_block():
-    assert cg_plan(1, 2160, 3840, *H100) == CgPlan("streaming")
-    assert cg_plan(1, 1200, 1600, *H100) == CgPlan("streaming")
+    assert cg_plan(1, 2160, 3840, *H100) == CgPlan("streaming", 264, 0, 0, 1, 128)
+    assert cg_plan(1, 1200, 1600, *H100) == CgPlan("streaming", 264, 0, 0, 1, 33)
     assert cg_plan(1, 25, 37, *H100).path == "single"
     assert cg_plan(1, 388, 584, *H100).blocks == 132
     # fewer SMs or less shared memory: the same shape may have to stream
@@ -100,7 +101,7 @@ def test_rof_plan_main_path_is_resident(shape):
 
 @pytest.mark.parametrize("shape", [(2, 2160, 3840), (2, 1080, 1920), (133, 8, 8)])
 def test_rof_plan_large_inputs_stream(shape):
-    assert rof_plan(*shape, *H100).path == "streaming"
+    assert rof_plan(*shape, *H100).path == "tiled"
 
 
 def test_every_c_entry_is_defined_in_the_sources():

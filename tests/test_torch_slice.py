@@ -16,7 +16,9 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from torch_parity import MAIN_PATH_PARAMS, SLICE_CROP, SLICE_CROP32, jax_flow, port_flow, rubberwhale_crop  # noqa: E402
+from torch_parity import (  # noqa: E402,F401
+    MAIN_PATH_PARAMS, SLICE_CROP, SLICE_CROP32, jax_flow, one_cpu_thread, port_flow, rubberwhale_crop,
+)
 
 
 def test_gray_ties_are_absent_from_the_crop():

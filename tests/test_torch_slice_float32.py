@@ -7,7 +7,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from torch_parity import SLICE_CROP32, jax_flow, port_flow, rubberwhale_crop  # noqa: E402
+from torch_parity import SLICE_CROP32, jax_flow, one_cpu_thread, port_flow, rubberwhale_crop  # noqa: E402,F401
 
 
 def test_slice_matches_jax_float32():

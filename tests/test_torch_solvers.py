@@ -6,7 +6,7 @@ import pytest
 torch = pytest.importorskip("torch")
 jnp = pytest.importorskip("jax.numpy")
 
-from torch_parity import SLICE_CROP32, flows, j, n, rubberwhale_crop, t  # noqa: E402
+from torch_parity import SLICE_CROP32, flows, j, n, one_cpu_thread, rubberwhale_crop, t  # noqa: E402,F401
 
 
 def _random_system(seed, H, W, lib):

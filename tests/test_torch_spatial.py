@@ -19,20 +19,9 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import t  # noqa: E402
+from torch_parity import one_cpu_thread, t  # noqa: E402,F401
 
 N = 8  # the shards of every CPU mesh here, as the JAX package's tests
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_cpu_thread():
-    """The shards are small tensors: one intra-op thread runs them fastest,
-    and keeps this module from oversubscribing the CPU beside other test
-    workers.  The count is restored after the module."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
 
 
 def _smooth(rng, shape, scale=255.0):

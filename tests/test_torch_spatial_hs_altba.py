@@ -18,16 +18,7 @@ import pytest
 torch = pytest.importorskip("torch")
 
 from test_torch_spatial import _level_inputs, _mesh, _smooth  # noqa: E402
-from torch_parity import t  # noqa: E402
-
-
-@pytest.fixture(scope="module", autouse=True)
-def one_cpu_thread():
-    """The shards are small tensors: one intra-op thread runs them fastest."""
-    threads = torch.get_num_threads()
-    torch.set_num_threads(1)
-    yield
-    torch.set_num_threads(threads)
+from torch_parity import one_cpu_thread, t  # noqa: E402,F401
 
 
 def _hs_cfg(method="hs-brightness", **settings):

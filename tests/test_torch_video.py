@@ -6,7 +6,7 @@ import pytest
 
 torch = pytest.importorskip("torch")
 
-from torch_parity import REPO_DATA_DIR  # noqa: E402
+from torch_parity import REPO_DATA_DIR, one_cpu_thread  # noqa: E402,F401
 
 PARAMS = {"display": False, "solver": "pcg"}
 

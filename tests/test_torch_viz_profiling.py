@@ -14,7 +14,7 @@ torch = pytest.importorskip("torch")
 matplotlib = pytest.importorskip("matplotlib")
 matplotlib.use("Agg")
 
-from torch_parity import t  # noqa: E402
+from torch_parity import one_cpu_thread, t  # noqa: E402,F401
 
 STYLES = ["color", "quiver", "magnitude", "hsv"]
 

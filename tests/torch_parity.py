@@ -1,13 +1,30 @@
 """Helpers shared by the ``test_torch_*`` files (not a test module).
 
 They move numpy inputs into the JAX package and into the PyTorch port and
-compare the results as numpy arrays.
+compare the results as numpy arrays; ``one_cpu_thread`` is the modules'
+shared fixture.
 """
 import os
 
 import numpy as np
+import pytest
 
 REPO_DATA_DIR = os.path.join(os.path.dirname(os.path.dirname(os.path.abspath(__file__))), "data")
+
+
+@pytest.fixture(scope="module", autouse=True)
+def one_cpu_thread():
+    """Autouse in every ``test_torch_*`` module that imports it: the port's
+    CPU tensors in these tests are small, so one intra-op thread runs them
+    fastest, and it keeps torch's thread pool from oversubscribing the CPU
+    beside the other test workers (the suite runs in parallel).  The count
+    is restored after the module."""
+    import torch
+
+    threads = torch.get_num_threads()
+    torch.set_num_threads(1)
+    yield
+    torch.set_num_threads(threads)
 
 
 def t(x, dtype=None):

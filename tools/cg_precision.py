@@ -21,7 +21,7 @@ sys.path.insert(0, os.path.dirname(os.path.dirname(os.path.abspath(__file__))))
 import chip_smoke  # noqa: E402
 from optical_flow_tpu_torch import estimate_flow  # noqa: E402
 from optical_flow_tpu_torch.io.flo import read_flow_file  # noqa: E402
-from optical_flow_tpu_torch.ops.cuda import cg_kernel  # noqa: E402
+from optical_flow_tpu_torch.ops.cuda import build, cg_kernel  # noqa: E402
 from optical_flow_tpu_torch.ops.stencil import FlowSystem  # noqa: E402
 from optical_flow_tpu_torch.solvers import cg as cg_solvers  # noqa: E402
 
@@ -50,7 +50,8 @@ def main():
         limit = 1e-5 * max(float(x64.abs().max()), 1.0)
         runs = {}
         runs["resident"] = (cg_kernel.cg_solve(sysm, rtol, maxiter), cg_kernel.iteration_counts(dev)[0])
-        runs["streaming"] = (cg_kernel.launch(list(sysm), rtol, maxiter, cg_kernel.CgPlan("streaming")),
+        runs["streaming"] = (cg_kernel.launch(list(sysm), rtol, maxiter,
+                                                      cg_kernel.streaming_plan(H, W, build.device_limits(dev)[0])),
                              cg_kernel.iteration_counts(dev)[0])
         runs["twin f32 sums"] = chip_smoke.cg_twin(torch, sysm, rtol, maxiter)
         runs["twin f64 sums"] = chip_smoke.cg_twin(torch, sysm, rtol, maxiter, sums=torch.float64)

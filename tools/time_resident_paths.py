@@ -1,5 +1,5 @@
 #!/usr/bin/env python
-"""Time the PCG and ROF kernels' resident and streaming paths on one GPU.
+"""Time the PCG and ROF kernels' resident and large-image (streaming, tiled) paths on one GPU.
 
     python3 tools/time_resident_paths.py
 
@@ -37,7 +37,6 @@ def main():
     print(f"card: {chip_smoke.card_line()}")
     limits = build.device_limits(dev)
     rng = np.random.default_rng(0)
-    streaming = cg_kernel.CgPlan("streaming")
 
     def per_iteration(planes, rtol, plan):
         ms = chip_smoke.cuda_ms(torch, lambda: cg_kernel.launch(planes, rtol, 200, plan), 10)
@@ -47,6 +46,7 @@ def main():
     for H, W in LEVELS:
         planes = list(chip_smoke._random_flow_system(torch, dev, rng, H, W))
         plan = cg_kernel.cg_plan(1, H, W, *limits)
+        streaming = cg_kernel.streaming_plan(H, W, limits[0])
         nb = min(limits[0], H)
         rows = -(-H // nb)
         bands = cg_kernel.CgPlan("resident", nb, 8, cg_kernel.resident_smem(rows, W))
@@ -58,6 +58,7 @@ def main():
     rgb1, rgb2, tu, tv = read_flow_file("RubberWhale", 10)
     irls = [f.contiguous() for f in chip_smoke._irls_system(torch, dev, rgb1, rgb2, tu, tv)]
     plan = cg_kernel.cg_plan(1, 388, 584, *limits)
+    streaming = cg_kernel.streaming_plan(388, 584, limits[0])
     runs = [("streaming", streaming), ("resident", plan), ("resident", plan), ("streaming", streaming)]
     print("cg irls 388x584 rtol 1e-3: " + "; ".join(f"{n} {per_iteration(irls, 1e-3, p)}" for n, p in runs))
 
@@ -67,8 +68,8 @@ def main():
 
     im = torch.as_tensor(rng.uniform(-1, 1, (2, 388, 584)), dtype=torch.float32, device=dev)
     plan = rof_kernel.rof_plan(*im.shape, *limits)
-    runs = [("streaming", rof_kernel.RofPlan("streaming")), ("resident", plan), ("resident", plan),
-            ("streaming", rof_kernel.RofPlan("streaming"))]
+    runs = [("tiled", rof_kernel.tiled_plan(100)), ("resident", plan), ("resident", plan),
+            ("tiled", rof_kernel.tiled_plan(100))]
     print("rof 2x388x584, 100 iterations: " + "; ".join(
         f"{n} {chip_smoke.cuda_ms(torch, lambda p=p: rof_kernel.launch(im, 1.0 / 8, 100, p), 10):.4f} ms" for n, p in runs))
     return 0
