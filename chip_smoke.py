@@ -146,7 +146,16 @@ Phases, each printing its results; any failed check exits non-zero:
     against theirs, each timed with its bound and, where a copy of the
     previous design's sources sits in the build directory
     (``previous_library``), in turns with that design's kernels; ``utils.profiling.trace`` around one frame (the trace names
-    the three kernels and the annotation) and ``StageTimer``.
+    the three kernels and the annotation) and ``StageTimer``;
+20. the cold start: fresh processes (the library already built by phase
+    1, whose build-and-load time is printed beside) each time ``import``
+    of the port and their first frame (host clock, and CUDA events around
+    the call): A, RubberWhale through ``estimate_flow`` cold; B, the same
+    after ``utils.warmup.warmup_classic_nl(ope, (388, 584))`` (its time and
+    launches: every kernel, no plain twin); C, the 4K RGB harness frame
+    after the warm-up at 2160x3840 (its PCG solves on the streaming path,
+    its ROF call tiled).  A's and B's first frames must be ``torch.equal``
+    to phase 3's frame, C's inside phase 19's 4K gate.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -162,8 +171,9 @@ previous design's time, where built).  Each
 entry's ``launches`` sums ``launches_by_path``, the launches in one frame
 of each path driven (counts set to 0 just before it), the paths of phases
 9-19 included (phase 18's summed over the ranks); the 4K calls of phase 19
-add ``frame4k_*``.  A line before those holds phases 13, 15, 16 and 17's
-latencies, phase 13's profile and phase 19's 4K frames as JSON.  Without a CUDA device, or
+add ``frame4k_*``; phase 20's sub-runs count under ``cold start *``.  A line
+before those holds phases 13, 15, 16 and 17's latencies, phase 13's profile,
+phase 19's 4K frames and phase 20's cold starts as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -255,6 +265,10 @@ INT32_MIN = -(2**31)
 WMEDIAN_SHARE = 0.9999
 
 
+# phase 1's kernel build-and-load seconds, printed again beside phase 20
+SETUP = {}
+
+
 class CheckFailed(Exception):
     pass
 
@@ -305,7 +319,8 @@ def phase_setup(torch):
     float32_settings(torch)
     t0 = time.time()
     build.load_library()
-    print(f"kernel build + load: {time.time() - t0:.1f} s (key {build.build_key()})")
+    SETUP["build_load_s"] = time.time() - t0
+    print(f"kernel build + load: {SETUP['build_load_s']:.1f} s (key {build.build_key()})")
     for name, regs, spill in ptxas_report(build.build_log):
         print(f"  ptxas: {name}: {regs} registers, {spill} bytes spill stores")
     return card
@@ -2869,6 +2884,139 @@ def phase_method_objects(torch, dev, card, rgb1, rgb2, tu, tv, main_uv, finest_c
     return by_path, frames, kernels_4k
 
 
+# phase 20: a fresh process's first frame, cold (A), after warmup_classic_nl
+# (B), and the 4K RGB harness frame after the warm-up at its size (C)
+COLD_RUNS = ("A", "B", "C")
+
+
+def cold_start_run(run, outdir):
+    """One sub-run of phase 20, in a process of its own (the library already
+    built): the port's import time, then for B and C the warm-up (no plain
+    twin; its time and launches), then the first frame with its launches,
+    timed on the host clock and by CUDA events around the call, and for A
+    and B a second frame.  Writes ``<run>.json`` and the first flow as
+    ``<run>.npy`` to ``outdir``."""
+    t0 = time.perf_counter()
+    import torch
+
+    import optical_flow_tpu_torch  # noqa: F401
+
+    import_s = time.perf_counter() - t0
+    from optical_flow_tpu_torch import estimate_flow, load_of_method
+    from optical_flow_tpu_torch.io.flo import read_flow_file
+    from optical_flow_tpu_torch.utils.compat import preprocess_color_pair
+    from optical_flow_tpu_torch.utils.warmup import warmup_classic_nl
+
+    dev = torch.device("cuda", 0)
+    float32_settings(torch)
+    out = {"import_s": import_s}
+    if run == "C":
+        rng = np.random.default_rng(SEED)
+        base = rng.uniform(0, 255, (*FRAME_4K, 3)).astype(np.float32)
+        im2 = np.roll(base, SHIFT_4K, axis=1)
+        sz = FRAME_4K
+    else:
+        rgb1, rgb2, _, _ = read_flow_file("RubberWhale", 10)
+        sz = rgb1.shape[:2]
+    with no_plain_twins():
+        if run != "A":
+            ope = load_of_method("classic+nl-fast")  # C: phase 19's harness call, the preset's solver
+            ope.parse_input_parameter(PARAMS if run == "B" else {"display": False})
+            reset_counts()
+            t0 = time.perf_counter()
+            warmup_classic_nl(ope, sz, color=True)
+            out["warmup_s"] = time.perf_counter() - t0
+            out["warmup_launches"], out["warmup_by_path"] = read_counts()
+        if run == "C":
+            ope.images, ope.color_images = preprocess_color_pair(torch.as_tensor(base, device=dev),
+                                                                 torch.as_tensor(im2, device=dev))
+            frame = ope.compute_flow
+        else:
+            frame = lambda: estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device=dev)  # noqa: E731
+        for key in ("first", "second") if run != "C" else ("first",):
+            reset_counts()
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            t0 = time.perf_counter()
+            start.record()
+            with torch.no_grad():
+                uv = frame()
+            end.record()
+            torch.cuda.synchronize()
+            out[f"{key}_host_ms"] = 1e3 * (time.perf_counter() - t0)
+            out[f"{key}_ms"] = start.elapsed_time(end)
+            out[f"{key}_launches"], out[f"{key}_by_path"] = read_counts()
+            if key == "first":
+                np.save(os.path.join(outdir, f"{run}.npy"), uv.cpu().numpy())
+    with open(os.path.join(outdir, f"{run}.json"), "w") as f:
+        json.dump(out, f)
+
+
+def phase_cold_start(torch, card, main_uv, frame_ms, frame_4k_ms):
+    """Phase 20: ``cold_start_run`` A, B and C, each in a fresh process, one
+    after the other with this process's cached blocks released.  A's and B's
+    first flows must be ``torch.equal`` to phase 3's frame; B's warm-up must
+    launch every kernel; C's warm-up must take the streaming PCG and tiled
+    ROF paths and its first frame lie within phase 19's 4K gate.  Returns
+    the launches by sub-run and the numbers."""
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    res, launches = {}, {}
+    with tempfile.TemporaryDirectory() as outdir:
+        for run in COLD_RUNS:
+            t0 = time.perf_counter()
+            child = subprocess.run(
+                [sys.executable, "-c", f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                                       f"chip_smoke.cold_start_run({run!r}, {outdir!r})"],
+                cwd=REPO, capture_output=True, text=True, timeout=RANKS_TIMEOUT)
+            check(child.returncode == 0, f"cold start {run}: the process failed: {child.stderr[-3000:]}")
+            with open(os.path.join(outdir, f"{run}.json")) as f:
+                r = json.load(f)
+            r["process_s"] = time.perf_counter() - t0
+            r["uv"] = np.load(os.path.join(outdir, f"{run}.npy"))
+            res[run] = r
+    print(f"cold start: phase 1's kernel build + load {SETUP.get('build_load_s', float('nan')):.1f} s; each sub-run a "
+          f"fresh process with the library built  [{card}]")
+    for run, label in (("A", "A, estimate_flow cold"), ("B", "B, after warmup_classic_nl(ope, (388, 584))"),
+                       ("C", "C, 4K RGB harness frame after warmup_classic_nl(ope, (2160, 3840))")):
+        r = res[run]
+        warm = (f"warm-up {r['warmup_s']:.3f} s (host clock), launches {r['warmup_launches']}, by path "
+                f"{r['warmup_by_path']}; " if "warmup_s" in r else "")
+        second = (f"; second frame {r['second_ms']:.2f} ms (CUDA events), {r['second_host_ms']:.2f} ms (host clock)"
+                  if "second_ms" in r else "")
+        print(f"cold start {label}: import {r['import_s']:.3f} s; {warm}first frame {r['first_ms']:.2f} ms (CUDA "
+              f"events), {r['first_host_ms']:.2f} ms (host clock), launches {r['first_launches']}{second}; process "
+              f"{r['process_s']:.1f} s  [{card}]")
+        launches[f"cold start {run} frame"] = r["first_launches"]
+        if "second_launches" in r:
+            launches[f"cold start {run} second frame"] = r["second_launches"]
+        if "warmup_launches" in r:
+            launches[f"cold start {run} warm-up"] = r["warmup_launches"]
+    print(f"cold start: phase 3's warm frame {frame_ms:.2f} ms, phase 19's warm 4K RGB frame {frame_4k_ms:.2f} ms "
+          f"(CUDA events, this process)  [{card}]")
+    main_np = main_uv.cpu().numpy()
+    same = {run: bool(torch.equal(torch.from_numpy(res[run]["uv"]), torch.from_numpy(main_np))) for run in ("A", "B")}
+    aepe, _, _ = _known_answer(res["C"]["uv"])
+    print(f"cold start: first frames torch.equal to phase 3's frame: {same}; C's AEPE against ({SHIFT_4K}, 0) on the "
+          f"interior {aepe:.6f} px (gate {GATE_4K_AEPE})")
+    check(all(same.values()), f"a cold-start first frame differs from phase 3's frame: {same}")
+    check(all(res["B"]["warmup_launches"][k] >= 1 for k in ("wmedian", "cg", "rof")),
+          f"the warm-up did not launch every kernel: {res['B']['warmup_launches']}")
+    c_paths = res["C"]["warmup_by_path"]
+    check(c_paths["cg streaming"] > 0 and c_paths["rof tiled"] >= 1,
+          f"the 4K warm-up did not take the streaming PCG and tiled ROF paths: {c_paths}")
+    check(bool(np.isfinite(res["C"]["uv"]).all()) and aepe <= GATE_4K_AEPE,
+          f"cold start C: AEPE {aepe:.4f} px against the known answer, gate {GATE_4K_AEPE}")
+    for label, key in (("warm-up", "warmup_by_path"), ("frame", "first_by_path")):
+        LARGE_IMAGE_LAUNCHES[f"cold start C {label}"] = (res["C"][key]["rof tiled"], res["C"][key]["cg streaming"])
+    print(f"cold start: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
+    numbers = {run: {k: v for k, v in r.items() if k != "uv"} for run, r in res.items()}
+    numbers["build_load_s"] = SETUP.get("build_load_s")
+    return launches, numbers
+
+
 def main():
     try:
         import torch
@@ -2947,6 +3095,8 @@ def main():
         launches_by_path.update(api_launches)
         for name, extra in kernels_4k.items():
             results[name].update(extra)
+        cold_launches, cold_start = phase_cold_start(torch, card, main_uv, frame_ms, frames_4k["4K rgb"]["frame_ms"])
+        launches_by_path.update(cold_launches)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -2978,7 +3128,8 @@ def main():
     print("batch scaling: " + json.dumps({**scaling, "profiled_batch4": prof, "families": family_latency,
                                           "sharded": sharded_latency,
                                           "multi_device": {"sharded_host_ms": family_ms, **pipeline_ms},
-                                          "multi_process_host_s": process_host_s, "frames_4k": frames_4k}))
+                                          "multi_process_host_s": process_host_s, "frames_4k": frames_4k,
+                                          "cold_start": cold_start}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

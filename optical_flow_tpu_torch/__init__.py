@@ -24,6 +24,8 @@ from optical_flow_tpu_torch.utils.guard import flow_health
 from optical_flow_tpu_torch.viz.flow_color import compute_color, flow_to_color, make_colorwheel
 from optical_flow_tpu_torch.viz.plot_flow import plot_flow
 
+__version__ = "0.1.0"
+
 __all__ = [
     "available_methods",
     "compute_color",

@@ -3,6 +3,8 @@
 Each penalty exposes ``value`` (d_type 0), ``deriv`` (1) and ``deriv_over_x``
 (2, the IRLS weight).  All ten penalties of the JAX package are here;
 ``mixture`` and ``spline_penalty`` are named but unimplemented, as there.
+``robust(name, *params)`` builds the :class:`Robust` descriptor; the
+reference's import path (``RobustFunction``) is :mod:`optical_flow_tpu_torch.robust`.
 """
 from __future__ import annotations
 
@@ -147,6 +149,16 @@ PENALTIES = {
 UNIMPLEMENTED_PENALTIES = ("mixture", "spline_penalty")
 
 
+def mixture(x, sigma, d_type):
+    """Mixture penalty: unimplemented, as in the JAX package."""
+    raise NotImplementedError("Mixture penalty is not yet implemented (matches reference).")
+
+
+def spline_penalty(x, sigma, d_type):
+    """Spline penalty: unimplemented, as in the JAX package."""
+    raise NotImplementedError("Spline penalty is not yet implemented.")
+
+
 @dataclasses.dataclass(frozen=True)
 class Robust:
     """Frozen descriptor of a robust penalty: (name, params)."""
@@ -166,11 +178,19 @@ class Robust:
         return self.params
 
     def evaluate(self, x):
-        return PENALTIES[self.name](x, self.params, 0)
+        return PENALTIES[self.name](torch.as_tensor(x), self.params, 0)
 
     def deriv(self, x):
-        return PENALTIES[self.name](x, self.params, 1)
+        return PENALTIES[self.name](torch.as_tensor(x), self.params, 1)
 
     def deriv_over_x(self, x):
         """IRLS weight rho'(x)/x."""
-        return PENALTIES[self.name](x, self.params, 2)
+        return PENALTIES[self.name](torch.as_tensor(x), self.params, 2)
+
+    def evaluate_log(self, x):
+        return self.evaluate(x)
+
+
+def robust(name: str, *params) -> Robust:
+    """Convenience constructor: ``robust('charbonnier', 1e-3)``; no params give ``(1.0,)``."""
+    return Robust(name, tuple(params) if params else (1.0,))

@@ -316,13 +316,13 @@ def test_weighted_median_1d_with_ties_matches_jax():
 
 # ------------------------------------------------------------------ exports
 
-SUBPACKAGES = ["", ".io", ".viz", ".solvers", ".evaluation", ".methods", ".utils"]
+SUBPACKAGES = ["", ".io", ".viz", ".solvers", ".evaluation", ".methods", ".utils", ".robust"]
 
 
 @pytest.mark.parametrize("sub", SUBPACKAGES)
 def test_jax_exports_import_from_the_port(sub):
     """Every name in the ``__all__`` of JAX's top level and subpackage imports
-    from the port's counterpart (``robust`` stays unported)."""
+    from the port's counterpart."""
     import importlib
 
     names = importlib.import_module("optical_flow_tpu" + sub).__all__
@@ -332,10 +332,14 @@ def test_jax_exports_import_from_the_port(sub):
 
 
 def test_import_loads_neither_jax_nor_matplotlib():
-    """A fresh interpreter: importing the port, its subpackages and every export
-    leaves JAX, the JAX package and matplotlib unloaded."""
+    """A fresh interpreter: importing the port, its subpackages (``robust``
+    and ``ops.sparse_compat`` included) and every export leaves JAX, the JAX
+    package and matplotlib unloaded."""
     code = ("import sys, optical_flow_tpu_torch as p\n"
             "import optical_flow_tpu_torch.viz, optical_flow_tpu_torch.utils.profiling\n"
+            "import optical_flow_tpu_torch.robust.penalties, optical_flow_tpu_torch.ops.sparse_compat\n"
+            "from optical_flow_tpu_torch.robust import *\n"
+            "from optical_flow_tpu_torch.utils.warmup import warmup_classic_nl\n"
             "from optical_flow_tpu_torch import *\n"
             "print(sorted(m for m in sys.modules if m.split('.')[0] in ('jax', 'optical_flow_tpu', 'matplotlib')))")
     out = subprocess.run([sys.executable, "-c", code], capture_output=True, text=True, timeout=120,
