@@ -2220,24 +2220,25 @@ def phase_sharded_families(torch, dev, card, rgb1, rgb2, tu, tv):
 
 
 def _per_device_launches(torch):
-    """Within the block, each unmeshed ``estimate_flow_batched`` call (one a
-    batch row of a meshed batch) appends (its device, its items, the kernels'
-    launches during it) to the list it yields."""
+    """Within the block, each unmeshed batched program (``parallel.batch.
+    _flow_batched``, the body of ``estimate_flow_batched``; one a batch row
+    of a meshed batch) appends (its device, its items, the kernels' launches
+    during it) to the list it yields."""
     from optical_flow_tpu_torch.parallel import batch as bp
 
-    log, call = [], bp.estimate_flow_batched
+    log, call = [], bp._flow_batched
 
-    def counted(images_batch, *args, **kwargs):
-        if kwargs.get("mesh") is not None:
-            return call(images_batch, *args, **kwargs)
+    def counted(images_batch, method, mesh, *args):
+        if mesh is not None:
+            return call(images_batch, method, mesh, *args)
         before = read_counts()[0]
-        out = call(images_batch, *args, **kwargs)
+        out = call(images_batch, method, mesh, *args)
         after = read_counts()[0]
         log.append((str(out.device), len(images_batch), {k: after[k] - before[k] for k in after}))
         return out
 
-    bp.estimate_flow_batched = counted
-    return log, lambda: setattr(bp, "estimate_flow_batched", call)
+    bp._flow_batched = counted
+    return log, lambda: setattr(bp, "_flow_batched", call)
 
 
 def phase_mesh_batches(torch, dev, card, pairs):
@@ -2778,7 +2779,7 @@ def phase_method_objects(torch, dev, card, rgb1, rgb2, tu, tv, main_uv, finest_c
     from optical_flow_tpu_torch.ops.cuda import cg_kernel
     from optical_flow_tpu_torch.ops.stencil import system_apply, system_diag, system_rhs
     from optical_flow_tpu_torch.solvers import pcg_solve
-    from optical_flow_tpu_torch.utils.profiling import StageTimer
+    from optical_flow_tpu_torch.utils.profiling import SPAN_PREFIX, StageTimer
 
     t_phase = time.perf_counter()
     by_path = {}
@@ -2874,9 +2875,10 @@ def phase_method_objects(torch, dev, card, rgb1, rgb2, tu, tv, main_uv, finest_c
     with timer.stage("compute_flow", sync=uv):
         with torch.no_grad():
             ope.compute_flow()
-    print(f"profiling: trace.json names the kernels {found}, the annotation: {'phase19-method-object' in names}; "
+    span = SPAN_PREFIX + "phase19-method-object"
+    print(f"profiling: trace.json names the kernels {found}, the annotation: {span in names}; "
           f"StageTimer: {timer.report().strip()}")
-    check(all(found.values()) and "phase19-method-object" in names,
+    check(all(found.values()) and span in names,
           f"the trace misses a kernel or the annotation: {len(kernel_names)} kernel names, "
           f"{sorted(kernel_names)[:40]}")
     check(timer.records[0][1] > 0, "StageTimer recorded no time")

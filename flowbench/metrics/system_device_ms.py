@@ -1,0 +1,7 @@
+"""system_device_ms: kernels, memsets and device-to-device copies launched under the port's `oftpu.system`
+span (both IRLS systems and their blend), outside the four `flowbench.<op>` ranges, per pair."""
+from flowbench.lib.spans import per_pair_ms
+
+
+def read(ctx):
+    return per_pair_ms(ctx, "system_s")

@@ -13,6 +13,7 @@ import torch
 
 from optical_flow_tpu_torch.config import load_of_method
 from optical_flow_tpu_torch.utils.compat import preprocess_color_pair
+from optical_flow_tpu_torch.utils.profiling import annotate
 
 
 def _resolve_dtype(dt):
@@ -91,10 +92,11 @@ def estimate_flow(im1, im2, method: str = "classic+nl-fast", params=None, device
     if params is not None:
         ope.parse_input_parameter(params)
     dev = resolve_device("cuda" if device is None else device) if mesh is None else _apply_mesh(ope, method, mesh, device)
-    with torch.no_grad():
+    with torch.no_grad(), annotate("entry", B=1, **dict(zip("HW", im1.shape)), method=method):
         # the JAX package's call: the pair and, where the preset asks for
         # colour, the guide go on the method object
-        ope.images, color = prepare_pair(ope, im1, im2, dev)
+        with annotate("prepare", bytes=im1.nbytes + im2.nbytes):
+            ope.images, color = prepare_pair(ope, im1, im2, dev)
         if ope.color_images is not None:
             ope.color_images = color
         uv = ope.compute_flow()

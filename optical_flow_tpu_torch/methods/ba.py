@@ -28,6 +28,7 @@ from optical_flow_tpu_torch.parallel.spatial import ba_level_step_spatial
 from optical_flow_tpu_torch.solvers.cg import solve_flow_system
 from optical_flow_tpu_torch.utils.compat import fspecial_gaussian, scale_image
 from optical_flow_tpu_torch.utils.guard import guard_level
+from optical_flow_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,21 +56,24 @@ class IRLSLevelConfig:
 
 def blended_system(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
     """The alpha-blended quadratic/robust IRLS system of the update."""
-    sys_q = build_irls_system(
-        uv, duv, It, Ix, Iy, cfg.qua_rho_spatial_u, cfg.qua_rho_spatial_v, cfg.qua_rho_data, cfg.lambda_q
-    )
-    sys_r = build_irls_system(
-        uv, duv, It, Ix, Iy, cfg.rho_spatial_u, cfg.rho_spatial_v, cfg.rho_data, cfg.lambda_
-    )
-    return blend_systems(alpha, sys_q, sys_r)
+    with annotate("system"):
+        sys_q = build_irls_system(
+            uv, duv, It, Ix, Iy, cfg.qua_rho_spatial_u, cfg.qua_rho_spatial_v, cfg.qua_rho_data, cfg.lambda_q
+        )
+        sys_r = build_irls_system(
+            uv, duv, It, Ix, Iy, cfg.rho_spatial_u, cfg.rho_spatial_v, cfg.rho_data, cfg.lambda_
+        )
+        return blend_systems(alpha, sys_q, sys_r)
 
 
 def solve_update(cfg: IRLSLevelConfig, sys):
     """Solve ``sys`` for the update and clip it to ±1 if ``cfg.limit_update``."""
-    x = solve_flow_system(sys, *cfg.solver)
-    if cfg.limit_update:
-        x = torch.clamp(x, -1.0, 1.0)
-    return x
+    H, W = sys.a11.shape[-2:]
+    with annotate("solve", H=H, W=W, B=sys.a11.numel() // (H * W)):
+        x = solve_flow_system(sys, *cfg.solver)
+        if cfg.limit_update:
+            x = torch.clamp(x, -1.0, 1.0)
+        return x
 
 
 def _blended_solve(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
@@ -79,19 +83,23 @@ def _blended_solve(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
 
 def ba_level_step(cfg: IRLSLevelConfig, images, uv, alpha):
     """One pyramid level of BA IRLS: ``max_iters`` warp iterations, then the guard."""
-    pre = precompute_warp(images, cfg.interp, np.array(cfg.deriv_filter), cfg.blend)
+    with annotate("warp"):
+        pre = precompute_warp(images, cfg.interp, np.array(cfg.deriv_filter), cfg.blend)
     uv0 = uv
     for _ in range(cfg.max_iters):
-        It, Ix, Iy = warp_deriv(pre, uv)
+        with annotate("warp"):
+            It, Ix, Iy = warp_deriv(pre, uv)
         duv = torch.zeros_like(uv)
         for _j in range(cfg.max_linear):
             duv = _blended_solve(cfg, uv, duv, It, Ix, Iy, alpha)
             if cfg.median_filter_size is not None:
                 # the duv trick; this order of operations is the JAX package's
-                duv = median_pair(uv + duv, cfg.median_filter_size) - uv
+                with annotate("median", size=cfg.median_filter_size):
+                    duv = median_pair(uv + duv, cfg.median_filter_size) - uv
         uv = uv + duv
     if cfg.guard:
-        uv = guard_level(uv, uv0, cfg.guard)
+        with annotate("guard"):
+            uv = guard_level(uv, uv0, cfg.guard)
     return uv
 
 
@@ -125,9 +133,11 @@ def _preprocess_traced(kind: str, images, alp: float, batch_dims: int = 0):
 def irls_pyramids(kind: str, alp: float, plan, images, batch_dims: int = 0):
     """(the ``plan.spacing`` pyramid, the GNC pyramid) of ``images``
     preprocessed by ``kind`` (:func:`_preprocess_traced`), finest first."""
-    proc = _preprocess_traced(kind, images, alp, batch_dims)
-    return (build_pyramid(proc, plan.levels, plan.spacing, batch_dims),
-            build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, batch_dims))
+    with annotate("preprocess", kind=kind):
+        proc = _preprocess_traced(kind, images, alp, batch_dims)
+    with annotate("pyramid", levels=(plan.levels, plan.gnc_levels)):
+        return (build_pyramid(proc, plan.levels, plan.spacing, batch_dims),
+                build_pyramid(proc, plan.gnc_levels, plan.gnc_spacing, batch_dims))
 
 
 def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpoint=None, mesh=None, halo_of=None,
@@ -141,6 +151,7 @@ def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpo
     solved and guarded on its own.
     """
     nb = images.ndim - 3  # leading batch axes
+    B = int(np.prod(images.shape[:nb]))
     pyramid, gnc_pyramid = irls_pyramids(plan.preprocess, plan.alp, plan, images, nb)
     for stage_idx, (cfg, alpha) in enumerate(plan.stages):
         if display:
@@ -149,16 +160,20 @@ def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpo
             levels, cur, shapes = plan.levels, pyramid, plan.shapes
         else:
             levels, cur, shapes = plan.gnc_levels, gnc_pyramid, plan.gnc_shapes
-        for level in range(levels - 1, -1, -1):
-            if display:
-                print(f"  Pyramid level: {level + 1}")
-            uv = resample_flow(uv, shapes[level])
-            if mesh is None:
-                uv = ba_level_step(cfg, cur[level], uv, alpha)
-            else:
-                uv = ba_level_step_spatial(cfg, cur[level], uv, alpha, mesh, halo_of(uv))
-            if checkpoint is not None:
-                checkpoint(stage_idx, level, uv)
+        with annotate("stage", stage=stage_idx, alpha=alpha):
+            for level in range(levels - 1, -1, -1):
+                if display:
+                    print(f"  Pyramid level: {level + 1}")
+                H, W = shapes[level]
+                with annotate("resample", H=H, W=W):
+                    uv = resample_flow(uv, shapes[level])
+                with annotate("level", stage=stage_idx, level=level, H=H, W=W, B=B):
+                    if mesh is None:
+                        uv = ba_level_step(cfg, cur[level], uv, alpha)
+                    else:
+                        uv = ba_level_step_spatial(cfg, cur[level], uv, alpha, mesh, halo_of(uv))
+                if checkpoint is not None:
+                    checkpoint(stage_idx, level, uv)
         if stage_end is not None:
             stage_end(stage_idx, uv)
     return uv

@@ -23,6 +23,7 @@ from optical_flow_tpu_torch.ops.resample import resample_flow
 from optical_flow_tpu_torch.ops.wmedian import denoise_color_weighted_medfilt2
 from optical_flow_tpu_torch.parallel.spatial import classic_nl_level_step_spatial
 from optical_flow_tpu_torch.utils.guard import guard_level
+from optical_flow_tpu_torch.utils.profiling import annotate
 
 
 @dataclasses.dataclass(frozen=True)
@@ -55,29 +56,34 @@ class NLFlowPlan:
 def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
     """One pyramid level of Classic+NL: ``max_iters`` warp iterations, then the guard."""
     irls = cfg.irls
-    pre = precompute_warp(images, irls.interp, np.array(irls.deriv_filter), irls.blend)
+    with annotate("warp"):
+        pre = precompute_warp(images, irls.interp, np.array(irls.deriv_filter), irls.blend)
     uv0 = uv
     for _ in range(irls.max_iters):
-        It, Ix, Iy = warp_deriv(pre, uv)
+        with annotate("warp"):
+            It, Ix, Iy = warp_deriv(pre, uv)
         duv = torch.zeros_like(uv)
         for _j in range(irls.max_linear):
             duv = _blended_solve(irls, uv, duv, It, Ix, Iy, alpha)
             if irls.median_filter_size is not None:
                 new_uv = uv + duv
-                occ = detect_occlusion(new_uv, images)
-                filtered = denoise_color_weighted_medfilt2(
-                    new_uv,
-                    color_images if cfg.use_color else None,
-                    occ,
-                    cfg.area_hsz,
-                    irls.median_filter_size,
-                    cfg.sigma_i,
-                    cfg.full_version,
-                )
+                with annotate("occlusion"):
+                    occ = detect_occlusion(new_uv, images)
+                with annotate("nonlocal", hsz=cfg.area_hsz):
+                    filtered = denoise_color_weighted_medfilt2(
+                        new_uv,
+                        color_images if cfg.use_color else None,
+                        occ,
+                        cfg.area_hsz,
+                        irls.median_filter_size,
+                        cfg.sigma_i,
+                        cfg.full_version,
+                    )
                 duv = filtered - uv
         uv = uv + duv
     if irls.guard:
-        uv = guard_level(uv, uv0, irls.guard)
+        with annotate("guard"):
+            uv = guard_level(uv, uv0, irls.guard)
     return uv
 
 
@@ -86,8 +92,9 @@ def color_pyramids(plan: NLFlowPlan, color, batch_dims: int = 0):
     or lists of None without colour."""
     if not plan.use_color:
         return [None] * plan.levels, [None] * plan.gnc_levels
-    return (build_pyramid(color, plan.levels, plan.spacing, batch_dims),
-            build_pyramid(color, plan.gnc_levels, plan.gnc_spacing, batch_dims))
+    with annotate("pyramid", levels=(plan.levels, plan.gnc_levels)):
+        return (build_pyramid(color, plan.levels, plan.spacing, batch_dims),
+                build_pyramid(color, plan.gnc_levels, plan.gnc_spacing, batch_dims))
 
 
 def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool = False, checkpoint=None,
@@ -106,6 +113,7 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
     pyramids and the colour-guide pyramids are.
     """
     nb = images.ndim - 3  # leading batch axes: images are (..., H, W, 2C)
+    B = int(np.prod(images.shape[:nb]))
     pyramid, gnc_pyramid = irls_pyramids(plan.preprocess, plan.alp, plan, images, nb)
     color_pyr, color_gnc_pyr = color_pyramids(plan, color, nb)
 
@@ -116,16 +124,21 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
             levels, cur, ccur, shapes = plan.levels, pyramid, color_pyr, plan.shapes
         else:
             levels, cur, ccur, shapes = plan.gnc_levels, gnc_pyramid, color_gnc_pyr, plan.gnc_shapes
-        for level in range(levels - 1, -1, -1):
-            if display:
-                print(f"  Pyramid level: {level + 1}")
-            uv = resample_flow(uv, shapes[level])
-            if mesh is None:
-                uv = classic_nl_level_step(cfg, cur[level], ccur[level], uv, alpha)
-            else:
-                uv = classic_nl_level_step_spatial(cfg, cur[level], ccur[level], uv, alpha, mesh, halo_of(uv))
-            if checkpoint is not None:
-                checkpoint(stage_idx, level, uv)
+        with annotate("stage", stage=stage_idx, alpha=alpha):
+            for level in range(levels - 1, -1, -1):
+                if display:
+                    print(f"  Pyramid level: {level + 1}")
+                H, W = shapes[level]
+                with annotate("resample", H=H, W=W):
+                    uv = resample_flow(uv, shapes[level])
+                with annotate("level", stage=stage_idx, level=level, H=H, W=W, B=B):
+                    if mesh is None:
+                        uv = classic_nl_level_step(cfg, cur[level], ccur[level], uv, alpha)
+                    else:
+                        uv = classic_nl_level_step_spatial(cfg, cur[level], ccur[level], uv, alpha, mesh,
+                                                           halo_of(uv))
+                if checkpoint is not None:
+                    checkpoint(stage_idx, level, uv)
         if stage_end is not None:
             stage_end(stage_idx, uv)
     return uv

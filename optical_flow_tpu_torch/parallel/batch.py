@@ -39,6 +39,7 @@ from optical_flow_tpu_torch.methods.ba import BAOpticalFlow, ba_flow_program
 from optical_flow_tpu_torch.methods.classic_nl import ClassicNLOpticalFlow, classic_nl_flow_program
 from optical_flow_tpu_torch.methods.hs import HSOpticalFlow, hs_flow_program
 from optical_flow_tpu_torch.utils.compat import preprocess_color_batch
+from optical_flow_tpu_torch.utils.profiling import annotate
 
 __all__ = ["estimate_flow_batched", "estimate_flow_batched_rgb", "preprocess_color_batch"]
 
@@ -85,6 +86,22 @@ def _as_batch(x, dtype, dev):
     return torch.as_tensor(np.array(x)).to(device=dev, dtype=dtype)
 
 
+def _shape(x):
+    """The shape of a tensor, an array or nested lists, without copying the first two."""
+    return tuple(x.shape) if hasattr(x, "shape") else np.shape(x)
+
+
+def _host_bytes(*xs) -> int:
+    """Bytes of the inputs in host memory (arrays, CPU tensors): what :func:`_as_batch` uploads."""
+    total = 0
+    for x in xs:
+        if not torch.is_tensor(x):
+            total += int(np.asarray(x).nbytes)
+        elif x.device.type == "cpu":
+            total += x.nbytes
+    return total
+
+
 def estimate_flow_batched(images_batch, method: str = "hs-brightness", mesh=None, params=None, color_batch=None,
                           device=None):
     """Estimate flow for a (B, H, W, 2) batch of gray frame pairs -> (B, H, W, 2).
@@ -110,13 +127,19 @@ def estimate_flow_batched(images_batch, method: str = "hs-brightness", mesh=None
     for the BA presets with the high-pass (``fc``) the fused route is the
     one this matches.  Alt-BA returns its auxiliary field, as there.
     """
+    with annotate("entry", **dict(zip("BHW", _shape(images_batch))), method=method):
+        return _flow_batched(images_batch, method, mesh, params, color_batch, device)
+
+
+def _flow_batched(images_batch, method, mesh, params, color_batch, device):
+    """:func:`estimate_flow_batched` inside its caller's ``entry`` span."""
     ope = _batched_method(method, params)
     if mesh is not None:
         B = len(images_batch)
         groups = _batch_groups(mesh, B, device, "estimate_flow_batched")
         home = resolve_device(mesh.home, "estimate_flow_batched")
-        uv = [estimate_flow_batched(images_batch[sl], method, params=params, device=dev,
-                                    color_batch=None if color_batch is None else color_batch[sl]).to(home)
+        uv = [_flow_batched(images_batch[sl], method, None, params,
+                            None if color_batch is None else color_batch[sl], dev).to(home)
               for dev, sl, entry in groups if mesh.is_local(entry)]
         if not mesh.spans_processes:
             return torch.cat(uv)
@@ -126,7 +149,8 @@ def estimate_flow_batched(images_batch, method: str = "hs-brightness", mesh=None
     dev = resolve_device("cuda" if device is None else device, "estimate_flow_batched")
     dtype = _resolve_dtype(ope.dtype)
     with torch.no_grad():
-        images = _as_batch(images_batch, dtype, dev)
+        with annotate("prepare", bytes=_host_bytes(images_batch)):
+            images = _as_batch(images_batch, dtype, dev)
         if images.ndim != 4 or images.shape[-1] % 2:
             raise ValueError(f"expected (B, H, W, 2C) frame pairs, got {tuple(images.shape)}")
         B, H, W = images.shape[:3]
@@ -164,11 +188,11 @@ def estimate_flow_batched_rgb(im1_batch, im2_batch, method: str = "classic+nl-fa
         device = mesh.home
     dev = resolve_device("cuda" if device is None else device, "estimate_flow_batched_rgb")
     dtype = _resolve_dtype(ope.dtype)
-    with torch.no_grad():
-        im1, im2 = _as_batch(im1_batch, dtype, dev), _as_batch(im2_batch, dtype, dev)
-        if im1.shape != im2.shape or im1.ndim != 4 or im1.shape[-1] < 3:
-            raise ValueError(f"expected two (B, H, W, 3) RGB batches, got {tuple(im1.shape)} and {tuple(im2.shape)}")
-        images, lab = preprocess_color_batch(im1, im2)
-    want_color = ope.color_images is not None and type(ope) is ClassicNLOpticalFlow
-    return estimate_flow_batched(images, method, mesh=mesh, params=params, color_batch=lab if want_color else None,
-                                 device=dev)
+    with torch.no_grad(), annotate("entry", **dict(zip("BHW", _shape(im1_batch))), method=method):
+        with annotate("prepare", bytes=_host_bytes(im1_batch, im2_batch)):
+            im1, im2 = _as_batch(im1_batch, dtype, dev), _as_batch(im2_batch, dtype, dev)
+            if im1.shape != im2.shape or im1.ndim != 4 or im1.shape[-1] < 3:
+                raise ValueError(f"expected two (B, H, W, 3) RGB batches, got {tuple(im1.shape)} and {tuple(im2.shape)}")
+            images, lab = preprocess_color_batch(im1, im2)
+        want_color = ope.color_images is not None and type(ope) is ClassicNLOpticalFlow
+        return _flow_batched(images, method, mesh, params, lab if want_color else None, dev)

@@ -3,7 +3,9 @@
 * :func:`trace`: a context manager around ``torch.profiler`` over the CPU
   and, where there is one, the GPU, writing a Chrome / Perfetto trace
   (``trace.json``) under ``logdir``;
-* :func:`annotate`: a named range in that trace, for host-side phases;
+* :func:`annotate`: the port's span, ``oftpu.<name>`` in that trace, with
+  an in-memory record of its attributes (:func:`span_records`); it costs one
+  flag check while no profiler records;
 * :class:`StageTimer`: host-clock stage timing that synchronises the
   device of the result before it reads the clock, with the JAX package's
   totals and report.
@@ -16,18 +18,23 @@ import time
 from typing import Dict, List, Tuple
 
 import torch
+import torch.autograd.profiler as _autograd_profiler
+
+SPAN_PREFIX = "oftpu."
 
 
 @contextlib.contextmanager
 def trace(logdir: str):
     """Profile the block; the trace goes to ``logdir/trace.json`` (Chrome trace
     format, viewable in Perfetto).  Yields the profiler; the device is
-    synchronised at the block's end, so its kernels are in the trace."""
+    synchronised at the block's end, so its kernels are in the trace.  The
+    span records start anew, so :func:`span_records` describes this block."""
     from torch.profiler import ProfilerActivity, profile
 
     cuda = torch.cuda.is_available()
     activities = [ProfilerActivity.CPU] + ([ProfilerActivity.CUDA] if cuda else [])
     os.makedirs(logdir, exist_ok=True)
+    clear_span_records()
     with profile(activities=activities) as prof:
         yield prof
         if cuda:
@@ -35,9 +42,41 @@ def trace(logdir: str):
     prof.export_chrome_trace(os.path.join(logdir, "trace.json"))
 
 
-def annotate(name: str):
-    """Named annotation context for host-side phases inside a trace."""
-    return torch.profiler.record_function(name)
+_OFF = contextlib.nullcontext()
+_records: List[dict] = []
+
+
+@contextlib.contextmanager
+def _span(name: str, attrs: dict):
+    with torch.profiler.record_function(SPAN_PREFIX + name):
+        _records.append({"name": name, "attrs": attrs})
+        yield
+
+
+def annotate(name: str, **attrs):
+    """The port's span: ``oftpu.<name>`` in the trace of a recording
+    ``torch.profiler`` session (the flag ``record_function`` itself reads),
+    on the profiler's clock, so each device operation ties to its innermost
+    span by its launch's correlation id.
+
+    While a profiler records, each span also appends a record of its name
+    and ``attrs``: the k-th record is the trace's k-th ``oftpu.*`` event in
+    start order, since the trace drops ``record_function``'s arguments.
+    While none records, a span is one flag check and the shared null
+    context: it records nothing."""
+    if not _autograd_profiler._is_profiler_enabled:
+        return _OFF
+    return _span(name, attrs)
+
+
+def span_records() -> List[dict]:
+    """The records of the spans made while a profiler recorded, in start
+    order, since the last :func:`trace` began or :func:`clear_span_records`."""
+    return list(_records)
+
+
+def clear_span_records():
+    _records.clear()
 
 
 def _synchronize(sync):
