@@ -155,7 +155,21 @@ Phases, each printing its results; any failed check exits non-zero:
     launches: every kernel, no plain twin); C, the 4K RGB harness frame
     after the warm-up at 2160x3840 (its PCG solves on the streaming path,
     its ROF call tiled).  A's and B's first frames must be ``torch.equal``
-    to phase 3's frame, C's inside phase 19's 4K gate.
+    to phase 3's frame, C's inside phase 19's 4K gate;
+21. the level step's CUDA graphs (``utils/graphs.py``): in a fresh process
+    for each tree, the RubberWhale classic+nl-fast frame (phase 3's call),
+    the 4K RGB frame of phase 19 through ``estimate_flow`` and ``classic++``
+    on 8 pairs in one batched call (phase 12's four and their mirror
+    images), each called twice, with the graph counters after each call:
+    captures only in the first call, every chain a replay in the second.
+    Where a copy of the parent commit's tree sits in ``_checkout/parent``
+    (``git archive <commit> | tar -x -C _checkout/parent``; git ignores
+    ``_checkout/``), its flows are computed on the same inputs and every
+    flow must be bit-identical to them; without it the phase says so.
+    Then ``flowbench/spans_report.py`` on both benchmark cells, for this
+    tree and the parent's: the per-level table and the span numbers.
+
+``python3 chip_smoke.py --phase 21`` runs phase 1 and phase 21 alone.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -173,7 +187,7 @@ of each path driven (counts set to 0 just before it), the paths of phases
 9-19 included (phase 18's summed over the ranks); the 4K calls of phase 19
 add ``frame4k_*``; phase 20's sub-runs count under ``cold start *``.  A line
 before those holds phases 13, 15, 16 and 17's latencies, phase 13's profile,
-phase 19's 4K frames and phase 20's cold starts as JSON.  Without a CUDA device, or
+phase 19's 4K frames, phase 20's cold starts and phase 21's calls as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -1205,15 +1219,16 @@ def read_counts():
 
 @contextlib.contextmanager
 def guard_tally(torch):
-    """Within the block, each level guard appends a device bool (True: the
-    level rolled back), 0-d or one an item of a batch, to the list it yields;
-    nothing is read on the host."""
-    from optical_flow_tpu_torch.methods import alt_ba, ba, classic_nl, hs
+    """Within the block, each level guard of alt-BA and HS appends a device
+    bool (True: the level rolled back), 0-d or one an item of a batch, to the
+    list it yields; nothing is read on the host.  The BA and Classic+NL
+    guards are replayed from CUDA graphs (``utils/graphs.py``), which no
+    wrapper sees; none of their presets turns the guard on."""
+    from optical_flow_tpu_torch.methods import alt_ba, hs
     from optical_flow_tpu_torch.utils.guard import flow_is_healthy
 
     rolled = []
-    saved = [(m, n, getattr(m, n)) for m, n in
-             ((alt_ba, "guard_level_pair"), (ba, "guard_level"), (classic_nl, "guard_level"), (hs, "guard_level"))]
+    saved = [(m, n, getattr(m, n)) for m, n in ((alt_ba, "guard_level_pair"), (hs, "guard_level"))]
 
     def tallied(fn, n_new):
         def guarded(*args):
@@ -3019,6 +3034,112 @@ def phase_cold_start(torch, card, main_uv, frame_ms, frame_4k_ms):
     return launches, numbers
 
 
+# phase 21: the level step's CUDA graphs against a copy of the parent commit's tree
+PARENT_TREE = os.path.join(REPO, "_checkout", "parent")
+GRAPH_RUNS = ("rubberwhale classic+nl-fast", "4K rgb classic+nl-fast", "classic++ B=8")
+SPANS_CELLS = ("nlfast_4k_single", "classicpp_mbo_b8")
+SPANS_SEED = 3141592653
+
+
+def graph_flows(tree, outdir):
+    """Phase 21's flows with the port of ``tree``, in a process of its own:
+    each of ``GRAPH_RUNS`` called twice.  Writes ``flows.npz`` and
+    ``calls.json`` (each call's host-clock ms and, where the tree has
+    ``utils/graphs.py``, the graph counters of that call) to ``outdir``."""
+    sys.path.insert(0, tree)
+    import torch
+
+    from optical_flow_tpu_torch import estimate_flow
+    from optical_flow_tpu_torch.io.flo import read_flow_file
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
+
+    try:
+        from optical_flow_tpu_torch.utils import graphs
+    except ImportError:  # a tree before the graphs
+        graphs = None
+    float32_settings(torch)
+    rgb1, rgb2, _, _ = read_flow_file("RubberWhale", 10)
+    base = np.random.default_rng(SEED).uniform(0, 255, (*FRAME_4K, 3)).astype(np.float32)
+    pairs = [read_flow_file(seq, 10)[:2] for seq in BATCH_SEQS]
+    b1 = np.stack([p[0] for p in pairs] + [p[0][:, ::-1] for p in pairs])
+    b2 = np.stack([p[1] for p in pairs] + [p[1][:, ::-1] for p in pairs])
+    runs = dict(zip(GRAPH_RUNS, (
+        lambda: estimate_flow(rgb1, rgb2, "classic+nl-fast", PARAMS, device="cuda"),
+        lambda: estimate_flow(base, np.roll(base, SHIFT_4K, axis=1), "classic+nl-fast", {"display": False},
+                              device="cuda"),
+        lambda: estimate_flow_batched_rgb(b1, b2, "classic++", params=PATH_PARAMS, device="cuda"))))
+    flows, calls = {}, {}
+    for name, run in runs.items():
+        for k in range(2):
+            if graphs is not None:
+                graphs.reset_stats()
+            t0 = time.perf_counter()
+            flows[f"{name}|{k}"] = run().cpu().numpy()
+            calls[f"{name}|{k}"] = {"ms": 1e3 * (time.perf_counter() - t0),
+                                    "graphs": graphs.stats("cuda") if graphs is not None else None}
+    np.savez(os.path.join(outdir, "flows.npz"), **flows)
+    with open(os.path.join(outdir, "calls.json"), "w") as f:
+        json.dump(calls, f)
+
+
+def phase_graphs(torch, card):
+    """Phase 21 (see the module docstring).  Returns the calls' numbers by tree."""
+    import shutil
+    import tempfile
+
+    t_phase = time.perf_counter()
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    trees = {"change": REPO}
+    if os.path.isdir(os.path.join(PARENT_TREE, "optical_flow_tpu_torch")):
+        trees = {"parent": PARENT_TREE, **trees}
+        built = os.path.join(REPO, "optical_flow_tpu_torch", "_build")
+        if not os.path.isdir(os.path.join(PARENT_TREE, "optical_flow_tpu_torch", "_build")):
+            shutil.copytree(built, os.path.join(PARENT_TREE, "optical_flow_tpu_torch", "_build"))  # same sources
+    else:
+        print(f"graphs: no parent tree in {PARENT_TREE}: the flows are compared with nothing")
+    flows, calls = {}, {}
+    with tempfile.TemporaryDirectory() as tmp:
+        for label, tree in trees.items():
+            outdir = os.path.join(tmp, label)
+            os.makedirs(outdir)
+            child = subprocess.run(
+                [sys.executable, "-c", f"import sys; sys.path.insert(0, {REPO!r}); import chip_smoke; "
+                                       f"chip_smoke.graph_flows({tree!r}, {outdir!r})"],
+                cwd=tree, capture_output=True, text=True, timeout=RANKS_TIMEOUT)
+            check(child.returncode == 0, f"graphs: the {label} process failed: {child.stderr[-3000:]}")
+            with np.load(os.path.join(outdir, "flows.npz")) as z:
+                flows[label] = {k: z[k] for k in z.files}
+            with open(os.path.join(outdir, "calls.json")) as f:
+                calls[label] = json.load(f)
+    for name in GRAPH_RUNS:
+        times = "; ".join(f"{label} {calls[label][name + '|0']['ms']:.2f} / {calls[label][name + '|1']['ms']:.2f} ms"
+                          for label in trees)
+        print(f"graphs: {name}, first / second call (host clock): {times}  [{card}]")
+        first, second = calls["change"][name + "|0"]["graphs"], calls["change"][name + "|1"]["graphs"]
+        print(f"graphs: {name}: first call {first}; second call {second}")
+        check(first["captures"] > 0 and second["captures"] == 0 and second["eager"] == 0
+              and second["hit_share"] == 1.0, f"graphs: {name}: a capture after the first call, or an eager chain")
+        same = np.array_equal(flows["change"][name + "|0"], flows["change"][name + "|1"])
+        if "parent" in trees:
+            ref = flows["parent"][name + "|0"]
+            same = same and all(np.array_equal(flows[label][name + f"|{k}"], ref)
+                                for label in trees for k in (0, 1))
+            print(f"graphs: {name}: both calls bit-identical to the parent's flow: {same}")
+        check(same, f"graphs: {name}: the flows differ between calls or from the parent's")
+    for cell in SPANS_CELLS:
+        for label, tree in reversed(list(trees.items())):
+            child = subprocess.run([sys.executable, "flowbench/spans_report.py", "--workload", cell, "--seed",
+                                    str(SPANS_SEED)], cwd=tree, capture_output=True, text=True,
+                                   timeout=RANKS_TIMEOUT)
+            check(child.returncode == 0, f"graphs: spans_report {cell} ({label}) failed: {child.stderr[-3000:]}")
+            print(f"graphs: spans_report {cell} seed {SPANS_SEED}, {label} tree  [{card}]")
+            print(child.stderr.rstrip())
+            print(child.stdout.strip().splitlines()[-1])
+    print(f"graphs: phase wall time {time.perf_counter() - t_phase:.1f} s (host clock)")
+    return calls
+
+
 def main():
     try:
         import torch
@@ -3034,6 +3155,18 @@ def main():
     sys.path.insert(0, REPO)
     from optical_flow_tpu_torch.io.flo import read_flow_file
 
+    if sys.argv[1:] == ["--phase", "21"]:
+        try:
+            card = phase_setup(torch)
+            graph_calls = phase_graphs(torch, card)
+        except CheckFailed as e:
+            print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
+            return 1
+        print("graphs: " + json.dumps(graph_calls))
+        print(card_line())
+        print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
+                                                 "count": torch.cuda.device_count()}}))
+        return 0
     try:
         card = phase_setup(torch)
         dev = torch.device("cuda", 0)
@@ -3099,6 +3232,7 @@ def main():
             results[name].update(extra)
         cold_launches, cold_start = phase_cold_start(torch, card, main_uv, frame_ms, frames_4k["4K rgb"]["frame_ms"])
         launches_by_path.update(cold_launches)
+        graph_calls = phase_graphs(torch, card)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3131,7 +3265,7 @@ def main():
                                           "sharded": sharded_latency,
                                           "multi_device": {"sharded_host_ms": family_ms, **pipeline_ms},
                                           "multi_process_host_s": process_host_s, "frames_4k": frames_4k,
-                                          "cold_start": cold_start}))
+                                          "cold_start": cold_start, "graphs": graph_calls}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

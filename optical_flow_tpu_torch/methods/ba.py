@@ -26,6 +26,7 @@ from optical_flow_tpu_torch.ops.rof import structure_texture_decomposition_rof
 from optical_flow_tpu_torch.ops.stencil import blend_systems, build_irls_system
 from optical_flow_tpu_torch.parallel.spatial import ba_level_step_spatial
 from optical_flow_tpu_torch.solvers.cg import solve_flow_system
+from optical_flow_tpu_torch.utils import graphs
 from optical_flow_tpu_torch.utils.compat import fspecial_gaussian, scale_image
 from optical_flow_tpu_torch.utils.guard import guard_level
 from optical_flow_tpu_torch.utils.profiling import annotate
@@ -54,16 +55,19 @@ class IRLSLevelConfig:
     guard: float = 0.0
 
 
+def irls_system(cfg: IRLSLevelConfig, alpha, uv, duv, It, Ix, Iy):
+    """The alpha-blended quadratic/robust IRLS system of the update (the level step's ``system`` chain)."""
+    sys_q = build_irls_system(
+        uv, duv, It, Ix, Iy, cfg.qua_rho_spatial_u, cfg.qua_rho_spatial_v, cfg.qua_rho_data, cfg.lambda_q
+    )
+    sys_r = build_irls_system(uv, duv, It, Ix, Iy, cfg.rho_spatial_u, cfg.rho_spatial_v, cfg.rho_data, cfg.lambda_)
+    return blend_systems(alpha, sys_q, sys_r)
+
+
 def blended_system(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
-    """The alpha-blended quadratic/robust IRLS system of the update."""
+    """:func:`irls_system` inside its span."""
     with annotate("system"):
-        sys_q = build_irls_system(
-            uv, duv, It, Ix, Iy, cfg.qua_rho_spatial_u, cfg.qua_rho_spatial_v, cfg.qua_rho_data, cfg.lambda_q
-        )
-        sys_r = build_irls_system(
-            uv, duv, It, Ix, Iy, cfg.rho_spatial_u, cfg.rho_spatial_v, cfg.rho_data, cfg.lambda_
-        )
-        return blend_systems(alpha, sys_q, sys_r)
+        return irls_system(cfg, alpha, uv, duv, It, Ix, Iy)
 
 
 def solve_update(cfg: IRLSLevelConfig, sys):
@@ -76,30 +80,42 @@ def solve_update(cfg: IRLSLevelConfig, sys):
         return x
 
 
-def _blended_solve(cfg: IRLSLevelConfig, uv, duv, It, Ix, Iy, alpha):
-    """Solve the alpha-blended quadratic/robust IRLS system for the update."""
-    return solve_update(cfg, blended_system(cfg, uv, duv, It, Ix, Iy, alpha))
+def warp_tables(cfg: IRLSLevelConfig, images):
+    """The level's flow-independent warp tables (the level step's first ``warp`` chain)."""
+    return precompute_warp(images, cfg.interp, np.array(cfg.deriv_filter), cfg.blend)
+
+
+def warp_derivatives(uv, pre):
+    """(It, Ix, Iy) of the level's images warped by ``uv`` (the ``warp`` chain of a warp iteration)."""
+    return warp_deriv(pre, uv)
+
+
+def level_guard(max_flow: float, uv, uv0):
+    """:func:`guard_level` of the level's result against its start."""
+    return guard_level(uv, uv0, max_flow)
 
 
 def ba_level_step(cfg: IRLSLevelConfig, images, uv, alpha):
-    """One pyramid level of BA IRLS: ``max_iters`` warp iterations, then the guard."""
-    with annotate("warp"):
-        pre = precompute_warp(images, cfg.interp, np.array(cfg.deriv_filter), cfg.blend)
+    """One pyramid level of BA IRLS: ``max_iters`` warp iterations, then the guard.
+
+    The plain-op chains run through ``utils.graphs.run``: replayed from CUDA
+    graphs on the card, eagerly elsewhere.  The solve and the median filter
+    between them stay eager."""
+    pre = graphs.run("warp", "precompute_warp", warp_tables, (cfg,), images)
     uv0 = uv
     for _ in range(cfg.max_iters):
-        with annotate("warp"):
-            It, Ix, Iy = warp_deriv(pre, uv)
+        It, Ix, Iy = graphs.run("warp", "warp_deriv", warp_derivatives, (), uv, pre)
         duv = torch.zeros_like(uv)
         for _j in range(cfg.max_linear):
-            duv = _blended_solve(cfg, uv, duv, It, Ix, Iy, alpha)
+            sys = graphs.run("system", "blended_system", irls_system, (cfg, alpha), uv, duv, It, Ix, Iy)
+            duv = solve_update(cfg, sys)
             if cfg.median_filter_size is not None:
                 # the duv trick; this order of operations is the JAX package's
                 with annotate("median", size=cfg.median_filter_size):
                     duv = median_pair(uv + duv, cfg.median_filter_size) - uv
         uv = uv + duv
     if cfg.guard:
-        with annotate("guard"):
-            uv = guard_level(uv, uv0, cfg.guard)
+        uv = graphs.run("guard", "guard_level", level_guard, (cfg.guard,), uv, uv0, fresh=True)
     return uv
 
 
@@ -152,6 +168,7 @@ def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpo
     """
     nb = images.ndim - 3  # leading batch axes
     B = int(np.prod(images.shape[:nb]))
+    call = (B, *images.shape[nb:nb + 2])  # the call shape its level graphs are kept under
     pyramid, gnc_pyramid = irls_pyramids(plan.preprocess, plan.alp, plan, images, nb)
     for stage_idx, (cfg, alpha) in enumerate(plan.stages):
         if display:
@@ -167,7 +184,8 @@ def ba_flow_program(plan: BAFlowPlan, images, uv, display: bool = False, checkpo
                 H, W = shapes[level]
                 with annotate("resample", H=H, W=W):
                     uv = resample_flow(uv, shapes[level])
-                with annotate("level", stage=stage_idx, level=level, H=H, W=W, B=B):
+                with annotate("level", stage=stage_idx, level=level, H=H, W=W, B=B), \
+                        graphs.level(call, stage_idx, level, graphed=mesh is None):
                     if mesh is None:
                         uv = ba_level_step(cfg, cur[level], uv, alpha)
                     else:

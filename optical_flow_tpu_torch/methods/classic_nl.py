@@ -14,15 +14,23 @@ from typing import Tuple
 import numpy as np
 import torch
 
-from optical_flow_tpu_torch.methods.ba import BAOpticalFlow, IRLSLevelConfig, _blended_solve, irls_pyramids
-from optical_flow_tpu_torch.ops.derivatives import precompute_warp, warp_deriv
+from optical_flow_tpu_torch.methods.ba import (
+    BAOpticalFlow,
+    IRLSLevelConfig,
+    irls_pyramids,
+    irls_system,
+    level_guard,
+    solve_update,
+    warp_derivatives,
+    warp_tables,
+)
 from optical_flow_tpu_torch.ops.occlusion import detect_occlusion
 from optical_flow_tpu_torch.ops.penalties import Robust
 from optical_flow_tpu_torch.ops.pyramid import auto_pyramid_levels, build_pyramid, pyramid_shapes
 from optical_flow_tpu_torch.ops.resample import resample_flow
 from optical_flow_tpu_torch.ops.wmedian import denoise_color_weighted_medfilt2
 from optical_flow_tpu_torch.parallel.spatial import classic_nl_level_step_spatial
-from optical_flow_tpu_torch.utils.guard import guard_level
+from optical_flow_tpu_torch.utils import graphs
 from optical_flow_tpu_torch.utils.profiling import annotate
 
 
@@ -54,21 +62,22 @@ class NLFlowPlan:
 
 
 def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
-    """One pyramid level of Classic+NL: ``max_iters`` warp iterations, then the guard."""
+    """One pyramid level of Classic+NL: ``max_iters`` warp iterations, then the guard.
+
+    The plain-op chains run through ``utils.graphs.run``, as in
+    ``ba_level_step``; the solve and the weighted median stay eager."""
     irls = cfg.irls
-    with annotate("warp"):
-        pre = precompute_warp(images, irls.interp, np.array(irls.deriv_filter), irls.blend)
+    pre = graphs.run("warp", "precompute_warp", warp_tables, (irls,), images)
     uv0 = uv
     for _ in range(irls.max_iters):
-        with annotate("warp"):
-            It, Ix, Iy = warp_deriv(pre, uv)
+        It, Ix, Iy = graphs.run("warp", "warp_deriv", warp_derivatives, (), uv, pre)
         duv = torch.zeros_like(uv)
         for _j in range(irls.max_linear):
-            duv = _blended_solve(irls, uv, duv, It, Ix, Iy, alpha)
+            sys = graphs.run("system", "blended_system", irls_system, (irls, alpha), uv, duv, It, Ix, Iy)
+            duv = solve_update(irls, sys)
             if irls.median_filter_size is not None:
                 new_uv = uv + duv
-                with annotate("occlusion"):
-                    occ = detect_occlusion(new_uv, images)
+                occ = graphs.run("occlusion", "detect_occlusion", detect_occlusion, (), new_uv, images)
                 with annotate("nonlocal", hsz=cfg.area_hsz):
                     filtered = denoise_color_weighted_medfilt2(
                         new_uv,
@@ -82,8 +91,7 @@ def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
                 duv = filtered - uv
         uv = uv + duv
     if irls.guard:
-        with annotate("guard"):
-            uv = guard_level(uv, uv0, irls.guard)
+        uv = graphs.run("guard", "guard_level", level_guard, (irls.guard,), uv, uv0, fresh=True)
     return uv
 
 
@@ -114,6 +122,7 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
     """
     nb = images.ndim - 3  # leading batch axes: images are (..., H, W, 2C)
     B = int(np.prod(images.shape[:nb]))
+    call = (B, *images.shape[nb:nb + 2])  # the call shape its level graphs are kept under
     pyramid, gnc_pyramid = irls_pyramids(plan.preprocess, plan.alp, plan, images, nb)
     color_pyr, color_gnc_pyr = color_pyramids(plan, color, nb)
 
@@ -131,7 +140,8 @@ def classic_nl_flow_program(plan: NLFlowPlan, images, color, uv, display: bool =
                 H, W = shapes[level]
                 with annotate("resample", H=H, W=W):
                     uv = resample_flow(uv, shapes[level])
-                with annotate("level", stage=stage_idx, level=level, H=H, W=W, B=B):
+                with annotate("level", stage=stage_idx, level=level, H=H, W=W, B=B), \
+                        graphs.level(call, stage_idx, level, graphed=mesh is None):
                     if mesh is None:
                         uv = classic_nl_level_step(cfg, cur[level], ccur[level], uv, alpha)
                     else:

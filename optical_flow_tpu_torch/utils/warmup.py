@@ -53,8 +53,10 @@ def warmup_classic_nl(ope, sz: Tuple[int, int], color: bool = True, max_workers:
     then runs the preprocessing of a ``sz`` pair (the ROF kernel on the path
     ``sz`` takes), the colour conversion and pyramids where ``color`` is set,
     and one level step at every (image, flow) shape pair of the schedule
-    (:func:`level_schedule`), which launches the PCG kernel on the path its
-    plan gives and the weighted median (the plain median without colour).
+    (:func:`level_schedule`) under its stage's alpha, which launches the PCG
+    kernel on the path its plan gives and the weighted median (the plain
+    median without colour) and captures the level's CUDA graphs
+    (``utils/graphs.py``), so that the first frame only replays them.
     ``max_workers`` is accepted for the JAX signature and unused: on one
     card the programs run in order on one stream.  Nothing is left that a
     later flow reads: the inputs come from a local ``np.random.default_rng(0)``.
@@ -63,6 +65,7 @@ def warmup_classic_nl(ope, sz: Tuple[int, int], color: bool = True, max_workers:
     from optical_flow_tpu_torch.methods.ba import irls_pyramids
     from optical_flow_tpu_torch.methods.classic_nl import classic_nl_level_step, color_pyramids
     from optical_flow_tpu_torch.ops.resample import resample_flow
+    from optical_flow_tpu_torch.utils import graphs
     from optical_flow_tpu_torch.utils.compat import preprocess_color_pair
 
     dev = resolve_device("cuda" if device is None else device, "warmup_classic_nl")
@@ -90,8 +93,13 @@ def warmup_classic_nl(ope, sz: Tuple[int, int], color: bool = True, max_workers:
         else:
             images = uniform(*sz, 2)
         irls_pyramids(plan.preprocess, plan.alp, plan, images)
-        for cfg, img_hw, uv_hw in calls:
+        # each level under its stage's alpha and the flow program's level context, so that the graphs it
+        # captures are the ones the flow replays (utils/graphs.py)
+        where = [(stage, level, alpha) for stage, (_, alpha) in enumerate(plan.stages)
+                 for level in range(len(plan.shapes if stage == 0 else plan.gnc_shapes) - 1, -1, -1)]
+        for (cfg, img_hw, uv_hw), (stage, level, alpha) in zip(calls, where):
             uv = resample_flow(torch.zeros((*uv_hw, 2), dtype=dtype, device=dev), img_hw)
-            classic_nl_level_step(cfg, uniform(*img_hw, 2), uniform(*img_hw, 3) if color else None, uv, 0.5)
+            with graphs.level((1, int(sz[0]), int(sz[1])), stage, level):
+                classic_nl_level_step(cfg, uniform(*img_hw, 2), uniform(*img_hw, 3) if color else None, uv, alpha)
     if dev.type == "cuda":
         torch.cuda.synchronize(dev)

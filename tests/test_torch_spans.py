@@ -147,3 +147,18 @@ def test_each_trace_starts_its_records_anew(tmp_path):
     assert profiling.span_records() == [{"name": "entry", "attrs": {"B": 1}}]
     profiling.clear_span_records()
     assert profiling.span_records() == []
+
+
+def test_the_chain_spans_say_how_their_chain_ran(tmp_path):
+    """``warp``, ``system``, ``occlusion`` and ``guard`` carry the attribute
+    ``graph`` (``utils/graphs.py``): on the CPU every chain runs eagerly."""
+    a, b = _frames()
+    with profiling.trace(str(tmp_path)):
+        estimate_flow(a, b, "classic+nl-fast", {**PARAMS, "guard_flow": 1e9}, device="cpu")
+    records = profiling.span_records()
+    profiling.clear_span_records()
+    chains = [r for r in records if "graph" in r["attrs"]]
+    assert {r["name"] for r in chains} == {"warp", "system", "occlusion", "guard"}
+    assert all(r["attrs"] == {"graph": "eager"} for r in chains)
+    assert {r["name"] for r in records} - {r["name"] for r in chains} == {
+        "entry", "prepare", "preprocess", "pyramid", "stage", "resample", "level", "solve", "nonlocal"}
