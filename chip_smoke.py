@@ -68,7 +68,8 @@ Phases, each printing its results; any failed check exits non-zero:
     float32 slice bounds of its single-pair run, the two RubberWhale items
     bit-identical; the batch's 21 PCG calls item by item against the twin
     with their time and bound by level, its finest weighted-median call
-    against one launch per item and the twin, and its ROF call on 8 images
+    against one launch per item, a second run and the twin
+    (``check_batched_wmedian``), and its ROF call on 8 images
     against the twin (phase 2 also runs the batched kernels on random
     inputs at every plan path);
 13. batched latency at B = 1, 3 and 4 beside B single frames, the B = 3
@@ -169,7 +170,23 @@ Phases, each printing its results; any failed check exits non-zero:
     Then ``flowbench/spans_report.py`` on both benchmark cells, for this
     tree and the parent's: the per-level table and the span numbers.
 
-``python3 chip_smoke.py --phase 21`` runs phase 1 and phase 21 alone.
+22. Classic+NL at the preset's own settings, ``"classic+nl"`` with its
+    backslash solve (PCG at rtol 1e-7): RubberWhale 584x388 through
+    ``estimate_flow`` and the eight 640x480 Middlebury pairs of
+    ``NL_VGA_SEQS`` in one ``estimate_flow_batched_rgb`` call.  A warm-up
+    call (each PCG solve's iterations, a sync a solve), then a counted call:
+    90 weighted-median launches (one a warp iteration: 5 + 2 + 2 levels of
+    10 warps), of 1 and of 8 items, 90 PCG calls (PCG's items 90 and 720),
+    1 ROF call, no plain twin, every graphed chain a replay; each flow with
+    ground truth inside the reference oracle's Classic+NL gate; the warm
+    frame's and the warm batch's latency (CUDA events), and one batch item
+    against its single-pair call.  The batch's last weighted-median inputs at
+    640x480 and 512x384 (recorded in the warm-up call, eight items a launch):
+    the launch against one launch per item and, item by item, against the
+    twin (``wmedian_valid``), twice bit for bit, and its time beside its bound.
+
+``python3 chip_smoke.py --phase 21`` runs phase 1 and phase 21 alone;
+``--phase 22`` runs phase 1 and phase 22 alone.
 
 The last line is one JSON object ``{"ok": true, "device": {...}}``; the
 line before it is nvidia-smi's name and power limit; before that, one
@@ -187,7 +204,8 @@ of each path driven (counts set to 0 just before it), the paths of phases
 9-19 included (phase 18's summed over the ranks); the 4K calls of phase 19
 add ``frame4k_*``; phase 20's sub-runs count under ``cold start *``.  A line
 before those holds phases 13, 15, 16 and 17's latencies, phase 13's profile,
-phase 19's 4K frames, phase 20's cold starts and phase 21's calls as JSON.  Without a CUDA device, or
+phase 19's 4K frames, phase 20's cold starts, phase 21's calls and phase 22's
+latencies as JSON.  Without a CUDA device, or
 without the rest of the repository beside it, the script exits non-zero
 and prints no result.  It imports neither JAX nor the JAX package.
 """
@@ -243,6 +261,16 @@ FAMILY_BATCHES = [
     ("hs sor", "hs", {"display": False, "solver": "sor"}, ("RubberWhale", "static")),
 ]
 LATENCY_RUNS = 3
+# Classic+NL at the preset's own settings: the reference oracle's AAE / AEPE
+# (benchmarks/results_ref_oracle_methods.json) and benchmarks/middlebury.py's
+# gate; the benchmark's eight 640x480 pairs; weighted-median launches and PCG
+# solves a frame at 388x584 and at 640x480, (5 + 2 + 2) levels x 10 warps
+NL_ORACLE = {"RubberWhale": (2.4235, 0.07653), "Grove2": (1.4444, 0.10079), "Grove3": (4.9609, 0.47053),
+             "Urban2": (1.9419, 0.1981), "Urban3": (2.723, 0.38634)}
+NL_GATE = (0.2, 0.02)
+NL_VGA_SEQS = ("Beanbags", "DogDance", "Grove2", "Grove3", "MiniCooper", "Urban2", "Urban3", "Walking")
+NL_WARPS = 90
+NL_WMEDIAN_CHECKED = ((480, 640), (384, 512))
 # the row-sharded phase: classic+nl-fast over 2 shards (divides 388 rows) and
 # 3 (the bottom pad), ba over 3; mean |d| of the sharded flow from the
 # unsharded card flow (float32: the order of the distributed PCG's sums)
@@ -1200,7 +1228,7 @@ def reset_counts():
     from optical_flow_tpu_torch.ops.cuda import cg_kernel, rof_kernel, wmedian_kernel
     from optical_flow_tpu_torch.parallel import dist
 
-    wmedian_kernel.launches = wmedian_kernel.items = 0
+    wmedian_kernel.reset_stats()
     rof_kernel.launches = rof_kernel.launches_resident = rof_kernel.launches_tiled = 0
     cg_kernel.reset_stats()
     dist.reset_counts()
@@ -1594,7 +1622,6 @@ def phase_batch(torch, dev, card, pairs):
     from optical_flow_tpu_torch.evaluation.gates import GATES, REF_ORACLE
     from optical_flow_tpu_torch.ops.cuda import cg_kernel
     from optical_flow_tpu_torch.ops.cuda.build import device_limits
-    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
     from optical_flow_tpu_torch.ops.stencil import FlowSystem
     from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
 
@@ -1686,27 +1713,42 @@ def phase_batch(torch, dev, card, pairs):
     print(f"cg batch B {B}, the 21 calls one by one: {frame_ms:.3f} ms, bound {frame_bound:.4f} ms  [{card}]")
 
     # the finest weighted-median call of the batch: one launch for B items
-    finest = max(recorded_wm, key=lambda a: a[4][0] * a[4][1])
-    H, W = finest[4]
-    out = wmedian(*finest)
-    each = torch.stack([wmedian(*[x[k] for x in finest[:4]], *finest[4:]) for k in range(B)])
-    ref = wmedian_plain(*finest)
-    torch.cuda.synchronize()
-    item_args = [(*[x[k] for x in finest[:4]], *finest[4:]) for k in range(B)]
-    valid = [wmedian_valid(torch, item_args[k], out[k], ref[k]) for k in range(B)]
-    ms = cuda_ms(torch, lambda: wmedian(*finest), 10)
-    ms_each = cuda_ms(torch, lambda: [wmedian(*[x[k] for x in finest[:4]], *finest[4:]) for k in range(B)], 10)
-    wb = sum(wmedian_bound((*[x[k] for x in finest[:4]], *finest[4:]))["bound_ms"] for k in range(B))
-    print(f"wmedian batch B {B} x {H}x{W} (the batch's finest input): one launch equal to one launch per item "
-          f"{torch.equal(out, each)}; against the twin, values differing by item {[a[0] for a in valid]}, "
-          f"each a median within the sums' rounding by item {[a[2] for a in valid]}; one launch {ms:.3f} ms, "
-          f"one launch per item {ms_each:.3f} ms, bound {wb:.4f} ms  [{card}]")
-    check(torch.equal(out, each) and all(a[1] >= WMEDIAN_SHARE and a[2] for a in valid),
-          "batched weighted median differs from one launch per item, or from the twin beyond the sums' rounding")
+    wm = check_batched_wmedian(torch, card, f"wmedian batch B {B}", max(recorded_wm, key=lambda a: a[4][0] * a[4][1]))
     rof = check_recorded_rof(torch, dev, card, recorded_rof, f"batch B {B}")
     return launches, by_path, {"batch_frame_sum_ms": frame_ms, "batch_frame_sum_bound_ms": frame_bound}, \
-        {"batch_main_path_ms": ms, "batch_per_item_ms": ms_each, "batch_main_path_bound_ms": wb}, \
+        {"batch_main_path_ms": wm["ms"], "batch_per_item_ms": wm["per_item_ms"],
+         "batch_main_path_bound_ms": wm["bound_ms"]}, \
         {"batch_" + k: v for k, v in rof.items()}
+
+
+def check_batched_wmedian(torch, card, label, args):
+    """A batch's recorded weighted-median input ``args`` (B items, one
+    launch): the launch against one launch per item and, item by item,
+    against the twin (``wmedian_valid``), a second run bit for bit, and the
+    launch's time beside its bound (the items' bounds summed)."""
+    from optical_flow_tpu_torch.ops.cuda.wmedian_kernel import wmedian, wmedian_plain
+
+    B, (H, W) = args[0].shape[0], args[4]
+    item_args = [(*[x[k] for x in args[:4]], *args[4:]) for k in range(B)]
+    out = wmedian(*args)
+    again = wmedian(*args)
+    each = torch.stack([wmedian(*a) for a in item_args])
+    ref = wmedian_plain(*args)
+    torch.cuda.synchronize()
+    valid = [wmedian_valid(torch, item_args[k], out[k], ref[k]) for k in range(B)]
+    ms = cuda_ms(torch, lambda: wmedian(*args), 10)
+    ms_each = cuda_ms(torch, lambda: [wmedian(*a) for a in item_args], 10)
+    wb = sum(wmedian_bound(a)["bound_ms"] for a in item_args)
+    print(f"{label} x {H}x{W} hsz {args[5]}: one launch equal to one launch per item {torch.equal(out, each)}, "
+          f"to a second run {torch.equal(out, again)}; against the twin, values differing by item "
+          f"{[a[0] for a in valid]}, each a median within the sums' rounding by item {[a[2] for a in valid]}; "
+          f"one launch {ms:.3f} ms, one launch per item {ms_each:.3f} ms, bound {wb:.4f} ms  [{card}]")
+    check(torch.equal(out, again), f"{label} {H}x{W}: weighted median differs between two runs on the same input")
+    check(torch.equal(out, each) and all(a[1] >= WMEDIAN_SHARE and a[2] for a in valid),
+          f"{label} {H}x{W}: batched weighted median differs from one launch per item, or from the twin beyond "
+          "the sums' rounding")
+    return {"ms": ms, "per_item_ms": ms_each, "bound_ms": wb, "differing": [a[0] for a in valid],
+            "max_abs_err": float((out - ref).abs().max())}
 
 
 def phase_scaling(torch, dev, card, pairs):
@@ -3140,6 +3182,95 @@ def phase_graphs(torch, card):
     return calls
 
 
+def phase_classic_nl(torch, card, rgb1, rgb2, tu, tv):
+    """Phase 22 (see the module docstring).  Returns each call's launches and the latencies."""
+    from optical_flow_tpu_torch import estimate_flow, flow_angular_error
+    from optical_flow_tpu_torch.io.flo import read_flow_file
+    from optical_flow_tpu_torch.ops.cuda import cg_kernel, wmedian_kernel
+    from optical_flow_tpu_torch.parallel.batch import estimate_flow_batched_rgb
+    from optical_flow_tpu_torch.utils import graphs
+
+    dev = torch.device("cuda", 0)
+    name = "classic+nl"
+    seqs = {seq: read_flow_file(seq, 10) for seq in NL_VGA_SEQS}
+    im1, im2 = np.stack([v[0] for v in seqs.values()]), np.stack([v[1] for v in seqs.values()])
+    B = len(NL_VGA_SEQS)
+    calls = {
+        "classic+nl": (lambda: estimate_flow(rgb1, rgb2, name, PATH_PARAMS, device=dev), 1,
+                       {"RubberWhale": (tu, tv)}),
+        "classic+nl batch VGA": (lambda: estimate_flow_batched_rgb(im1, im2, name, params=PATH_PARAMS, device=dev),
+                                 B, {seq: v[2:] for seq, v in seqs.items() if v[2] is not None}),
+    }
+    launches_by_path, timing = {}, {}
+    for label, (run, n, truth) in calls.items():
+        recorded = []
+        with solve_log(torch, dev) as log, _recording(torch, recorded if n > 1 else None, None):
+            t0 = time.perf_counter()
+            run()
+            torch.cuda.synchronize()
+        warm_s = time.perf_counter() - t0
+        # the batch's last weighted-median input at 640x480 (stage 3's finest
+        # level) and at 512x384 (its GNC level below)
+        kept = {a[4]: a for a in recorded if a[4] in NL_WMEDIAN_CHECKED}
+        del recorded
+        solves = [(shape, sum(its)) for shape, its, _ in log["cg"]]
+        reset_counts()
+        graphs.reset_stats()
+        with no_plain_twins():
+            uv = run()
+            torch.cuda.synchronize()
+        launches, by_path = read_counts()
+        wm, g = wmedian_kernel.stats(), graphs.stats(dev)
+        cg_iters = cg_kernel.iteration_counts(dev)[1]
+        uv_np = uv.cpu().numpy().reshape(n, *uv.shape[-3:])
+        check(np.isfinite(uv_np).all(), f"{label}: flow is not finite")
+        print(f"{label}: warm-up call {warm_s:.2f} s (host clock, one sync a solve); launches in one call "
+              f"{launches}, {by_path}, weighted median {wm}, graphs {g}, CG iterations {cg_iters} (warm-up "
+              f"{sum(i for _, i in solves)}); per level, coarse to fine (shape: solves, iterations over the items): "
+              + "; ".join(f"{h}x{w}: {k}, {i}" for (h, w), k, i in level_runs(solves)))
+        for i, seq in enumerate(NL_VGA_SEQS if n > 1 else ["RubberWhale"]):
+            if seq in truth:
+                aae, _, aepe = flow_angular_error(*truth[seq], uv_np[i, ..., 0], uv_np[i, ..., 1])
+                (t_aae, t_aepe), (g_aae, g_aepe) = NL_ORACLE[seq], NL_GATE
+                print(f"{label} {seq}: AAE {aae:.4f} deg, AEPE {aepe:.5f} px (oracle {t_aae} / {t_aepe}, gate "
+                      f"{g_aae} / {g_aepe})")
+                check(abs(aae - t_aae) <= g_aae and abs(aepe - t_aepe) <= g_aepe, f"{label} {seq}: accuracy "
+                      "outside the gate")
+        check(wm == {"launches": NL_WARPS, "items": n * NL_WARPS} and launches["rof"] == 1,
+              f"{label}: weighted median {wm}, ROF {launches['rof']}: expected {NL_WARPS} launches of {n} items, 1 ROF")
+        check(len(solves) == NL_WARPS and by_path["cg items"] == n * NL_WARPS,
+              f"{label}: {len(solves)} PCG calls of {by_path['cg items']} items, expected {NL_WARPS} of {n}")
+        check(cg_iters == sum(i for _, i in solves), f"{label}: CG iterations differ between two calls")
+        check(g["captures"] == 0 and g["hit_share"] == 1.0, f"{label}: a second call captured graphs: {g}")
+        ev_ms = []
+        for _ in range(LATENCY_RUNS):
+            start, end = torch.cuda.Event(enable_timing=True), torch.cuda.Event(enable_timing=True)
+            torch.cuda.synchronize()
+            start.record()
+            run()
+            end.record()
+            torch.cuda.synchronize()
+            ev_ms.append(start.elapsed_time(end))
+        timing[label] = {"call_ms": statistics.median(ev_ms), "pair_ms": statistics.median(ev_ms) / n,
+                         "runs_ms": ev_ms, "cg_iters": cg_iters, "solves": len(solves)}
+        print(f"{label}: latency, median of {LATENCY_RUNS} warm calls: {timing[label]['call_ms']:.2f} ms a call, "
+              f"{timing[label]['pair_ms']:.2f} ms a pair (CUDA events; runs {', '.join(f'{x:.2f}' for x in ev_ms)})"
+              f"  [{card}]")
+        launches_by_path[label] = launches
+        if n > 1:
+            check(sorted(kept) == sorted(NL_WMEDIAN_CHECKED), f"{label}: recorded weighted-median inputs at "
+                  f"{sorted(kept)}, expected {sorted(NL_WMEDIAN_CHECKED)}")
+            timing[label]["wmedian"] = {f"{h}x{w}": check_batched_wmedian(torch, card, f"{label} weighted median",
+                                                                          kept[(h, w)]) for h, w in NL_WMEDIAN_CHECKED}
+            del kept
+            seq = NL_VGA_SEQS[2]
+            single = estimate_flow(seqs[seq][0], seqs[seq][1], name, PATH_PARAMS, device=dev).cpu().numpy()
+            d = np.abs(single - uv_np[2])
+            print(f"{label}: item 2 ({seq}) against its single-pair call: mean |d| {d.mean():.3g} px, max "
+                  f"{d.max():.3g} px")
+    return launches_by_path, timing
+
+
 def main():
     try:
         import torch
@@ -3155,14 +3286,17 @@ def main():
     sys.path.insert(0, REPO)
     from optical_flow_tpu_torch.io.flo import read_flow_file
 
-    if sys.argv[1:] == ["--phase", "21"]:
+    if sys.argv[1:] in (["--phase", "21"], ["--phase", "22"]):
         try:
             card = phase_setup(torch)
-            graph_calls = phase_graphs(torch, card)
+            if sys.argv[2] == "21":
+                print("graphs: " + json.dumps(phase_graphs(torch, card)))
+            else:
+                rgb1, rgb2, tu, tv = read_flow_file("RubberWhale", 10)
+                print("classic+nl: " + json.dumps(phase_classic_nl(torch, card, rgb1, rgb2, tu, tv)))
         except CheckFailed as e:
             print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
             return 1
-        print("graphs: " + json.dumps(graph_calls))
         print(card_line())
         print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),
                                                  "count": torch.cuda.device_count()}}))
@@ -3233,6 +3367,8 @@ def main():
         cold_launches, cold_start = phase_cold_start(torch, card, main_uv, frame_ms, frames_4k["4K rgb"]["frame_ms"])
         launches_by_path.update(cold_launches)
         graph_calls = phase_graphs(torch, card)
+        nl_launches, nl_latency = phase_classic_nl(torch, card, rgb1, rgb2, tu, tv)
+        launches_by_path.update(nl_launches)
     except CheckFailed as e:
         print(f"chip_smoke: FAILED: {e}", file=sys.stderr)
         return 1
@@ -3265,7 +3401,8 @@ def main():
                                           "sharded": sharded_latency,
                                           "multi_device": {"sharded_host_ms": family_ms, **pipeline_ms},
                                           "multi_process_host_s": process_host_s, "frames_4k": frames_4k,
-                                          "cold_start": cold_start, "graphs": graph_calls}))
+                                          "cold_start": cold_start, "graphs": graph_calls,
+                                          "classic_nl": nl_latency}))
     print(json.dumps({"kernels": kernels}))
     print(card_line())
     print(json.dumps({"ok": True, "device": {"platform": "gpu", "kind": torch.cuda.get_device_name(0),

@@ -9,6 +9,7 @@ to fine; classic+nl-fast runs 3 warp iterations per level.
 from __future__ import annotations
 
 import dataclasses
+import math
 from typing import Tuple
 
 import numpy as np
@@ -78,7 +79,8 @@ def classic_nl_level_step(cfg: NLLevelConfig, images, color_images, uv, alpha):
             if irls.median_filter_size is not None:
                 new_uv = uv + duv
                 occ = graphs.run("occlusion", "detect_occlusion", detect_occlusion, (), new_uv, images)
-                with annotate("nonlocal", hsz=cfg.area_hsz):
+                with annotate("nonlocal", hsz=cfg.area_hsz, B=math.prod(uv.shape[:-3]), H=uv.shape[-3],
+                              W=uv.shape[-2]):
                     filtered = denoise_color_weighted_medfilt2(
                         new_uv,
                         color_images if cfg.use_color else None,

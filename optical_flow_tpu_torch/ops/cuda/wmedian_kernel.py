@@ -36,6 +36,17 @@ launches = 0  # kernel launches (one per call, whatever the batch)
 items = 0  # flows filtered by the kernel (B per call)
 
 
+def stats() -> dict:
+    """The kernel's launches and the flows it filtered since :func:`reset_stats`."""
+    return {"launches": launches, "items": items}
+
+
+def reset_stats() -> None:
+    """Zero the launch and item counts."""
+    global launches, items
+    launches = items = 0
+
+
 def wide_fits(hsz: int) -> bool:
     """Whether one warp's weights and keys of a (2 hsz + 1)^2 window fit the
     H100's 232,448 B of shared memory a block (``wide_warps`` in csrc/wmedian.cu)."""
